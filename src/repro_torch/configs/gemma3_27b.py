@@ -1,0 +1,23 @@
+"""Gemma3-27B — dense, 5:1 local:global attention, 128k context.
+
+[hf:google/gemma-3-1b-pt]
+"""
+from repro_torch.configs.base import ModelConfig, register
+
+CONFIG = register(ModelConfig(
+    arch_id="gemma3-27b",
+    family="dense",
+    citation="hf:google/gemma-3-1b-pt",
+    n_layers=62,
+    d_model=5376,
+    n_heads=32,
+    n_kv_heads=16,
+    head_dim=128,
+    d_ff=21504,
+    vocab_size=262144,
+    local_global_pattern=(5, 1),
+    sliding_window=1024,
+    rope_theta=1_000_000.0,
+    tie_embeddings=True,
+    activation="geglu",
+))
