@@ -6,24 +6,38 @@ Phases, each of which fails the run (non-zero exit, no result line) if it
 fails:
 
 1. card: its name and power limit;
-2. build: the CUDA kernels from the sources in this checkout, with ptxas's
-   register / shared-memory / spill lines;
+2. build: the four CUDA kernels from the sources in this checkout, with
+   ptxas's register / shared-memory / spill lines;
 3. kernels: each kernel against its plain PyTorch version on the card at the
-   serving path's shapes and more (head_dim 64/128/256, windows, ragged
-   tiles and ragged valid lengths, one long shape), bf16 and f32, with the
-   kernel's time, the plain version's, one PyTorch library call's
-   (scaled_dot_product_attention, a yardstick the port never calls) and the
-   least time the card could take (the bound);
+   serving path's shapes and more (head_dims, windows, ragged tiles and
+   ragged valid lengths, shuffled page tables, long shapes), bf16 and f32,
+   with the kernel's time, the plain version's, one PyTorch library call's
+   where one computes the same function (scaled_dot_product_attention, a
+   yardstick the port never calls) and the least time the card could take
+   (the bound);
 4. engine: full-width gemma-2b (bf16, random weights from a seed) served
-   through `repro_torch.launch.serve`, with both kernels' launch counts
-   read around the run; then reduced float32 gemma-2b and gemma3-12b
-   engines (the latter decoding past its rolling window) on the card
-   against the same engines on the CPU (plain versions): the same greedy
-   tokens;
-5. fleet: the `--policy perllm` edge-cloud fleet on the card.
+   through `repro_torch.launch.serve`, with the kernels' launch counts
+   read around the run; then reduced float32 gemma-2b, gemma3-12b (decoding
+   past its rolling window) and mamba2 engines on the card against the same
+   engines on the CPU (plain versions): the same greedy tokens;
+5. mamba2: full-width mamba2-2.7b (bf16) served through the launcher with
+   prompts up to the 256 bucket, one SSD-diagonal launch per layer and
+   prefill; then a reduced float32 paged mamba2 engine evicting and
+   resuming a request (its SSM state through the snapshot), card against
+   CPU and against the uninterrupted run;
+6. paged: full-width gemma-2b through the launcher with `--paged` and a pool
+   that stalls admission; a request evicted mid-decode and resumed with
+   the dense engine's tokens, and the paged kernel launched on every
+   layer's pool through its page table against the decode kernel on the
+   slot's dense cache; a prompt hitting a shared prefix; and a reduced
+   float32 paged engine with a prefix hit and an eviction, card against
+   CPU;
+7. fleet: the `--policy perllm` edge-cloud fleet on the card, dense and
+   `--paged` (the paged one against the same fleet on the CPU).
 
-`--profile` also traces the warm engine run with torch.profiler (device
-time by kernel and the device's busy share of the wall time).
+`--profile` also traces the warm gemma-2b and mamba2 engine runs with
+torch.profiler (device time by kernel and the device's busy share of the
+wall time).
 
 Before the last line it prints one JSON object with a row per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -37,15 +51,36 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+DEVICE = "cuda"                    # where every main path runs
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM memory rate
 PEAK_OPS_PER_S = {"bfloat16": 989e12,   # dense tensor-core rate
                   "float32": 67e12}     # float32 outside the tensor cores
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 REL_RMS = 0.05                     # max error / RMS of the plain output
+# the SSD kernel against the plain version on the CPU, which sums in another
+# order: max error / RMS read 3.3e-6 to 2.2e-4 on the H100, so 5x the most
+CPU_REL_RMS = 1e-3
+LIBRARY = {
+    "flash_attention": "scaled_dot_product_attention (is_causal, or a "
+                       "boolean mask for windows and offsets)",
+    "decode_attention": "scaled_dot_product_attention with a boolean mask",
+    "paged_attention": "none: no single PyTorch call reads a paged pool "
+                       "through a page table",
+    "ssd_diag": "none: no single PyTorch call computes the SSD diagonal "
+                "block",
+}
 SERVE_ARGS = ["--arch", "gemma-2b", "--requests", "8", "--max-new", "16",
               "--max-batch", "4", "--max-seq", "256", "--device", "cuda"]
 FLEET_ARGS = ["--policy", "perllm", "--requests", "12", "--max-new", "4",
               "--device", "cuda"]
+# mamba2-2.7b at full width; prompts of 60-199 tokens fall in the 64, 128
+# and 256 buckets, so prefill runs the SSD kernel at chunks 64, 128, 256
+MAMBA_ARGS = ["--arch", "mamba2-2.7b", "--requests", "6", "--max-new", "8",
+              "--max-batch", "4", "--max-seq", "512", "--prompt-len", "60",
+              "200", "--device", "cuda"]
+# gemma-2b with a 10-block pool: each request needs 2-3 blocks of 16
+# tokens, so fewer than the 4 lanes fit and admission stalls
+PAGED_ARGS = SERVE_ARGS + ["--paged", "10"]
 
 
 def fail(msg: str) -> None:
@@ -111,13 +146,15 @@ def close(out, plain, dtype):
     """Max abs error, its share of the plain output's RMS, and whether both
     hold: allclose at the stated tolerance, and an error under REL_RMS of
     the RMS (at long shapes |out| is about the bf16 tolerance, so a
-    dropped tile would pass allclose alone)."""
+    dropped tile would pass allclose alone). An all-zero plain output
+    proves nothing and fails."""
     import torch
     out, plain = out.float(), plain.float()
     err = (out - plain).abs().max().item()
-    rel = err / max(plain.pow(2).mean().sqrt().item(), 1e-30)
+    rms = plain.pow(2).mean().sqrt().item()
+    rel = err / max(rms, 1e-30)
     ok = torch.allclose(out, plain, rtol=TOL[dtype], atol=TOL[dtype]) \
-        and rel <= REL_RMS
+        and rel <= REL_RMS and rms > 0
     return err, rel, ok
 
 
@@ -197,6 +234,98 @@ def check_decode(case, dev):
         bound_ms=bms, bound_by=by)
 
 
+def check_paged(case, dev):
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_attention import paged_attention
+    hq, hkv, d, page, n_pages, valid, dtype, label = case
+    b = len(valid)
+    n_pool = b * n_pages + 3
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    q = torch.randn(b, hq, d, generator=gen, device=dev).to(dt)
+    # pools in the model layout (n_pool, page, Hkv, D), read as views
+    kp = torch.randn(n_pool, page, hkv, d, generator=gen, device=dev).to(dt)
+    vp = torch.randn(n_pool, page, hkv, d, generator=gen, device=dev).to(dt)
+    kt, vt = kp.transpose(1, 2), vp.transpose(1, 2)
+    perm = torch.randperm(n_pool, generator=gen, device=dev)[: b * n_pages]
+    tables = perm.reshape(b, n_pages).to(torch.int32)
+    tables[0, -1] = 0                   # a pad entry on page 0
+    vl = torch.tensor(valid, dtype=torch.int32, device=dev)
+    scale = d ** -0.5
+    out = paged_attention(q, kt, vt, tables, vl, scale=scale)
+    torch.cuda.synchronize()
+    plain = ref.paged_attention_ref(q, kt, vt, tables, vl, scale=scale)
+    err, rel, ok = close(out, plain, dtype)
+    span = n_pages * page
+    slots = sum(min(x, span) if x > 0 else span for x in valid)  # slots read
+    elem = q.element_size()
+    n_bytes = elem * (2 * b * hq * d + 2 * hkv * slots * d) \
+        + 4 * (b * n_pages + b)
+    n_ops = 4.0 * d * hq * slots
+    bms, by = bound_ms(n_bytes, n_ops, dtype)
+    return dict(
+        kernel="paged_attention", label=label, shape=dict(
+            b=b, hq=hq, hkv=hkv, d=d, page=page, n_pages=n_pages,
+            valid_len=list(valid)),
+        dtype=dtype, max_abs_err=err, err_rms=rel, ok=ok,
+        # the kernel alone on tables already checked, then with the
+        # wrapper's page-id check (a device round trip a call)
+        ms=time_ms(lambda: paged_attention(q, kt, vt, tables, vl,
+                                           scale=scale, check_pages=False)),
+        checked_ms=time_ms(lambda: paged_attention(q, kt, vt, tables, vl,
+                                                   scale=scale)),
+        plain_ms=time_ms(lambda: ref.paged_attention_ref(
+            q, kt, vt, tables, vl, scale=scale)),
+        library_ms=None, bound_ms=bms, bound_by=by)
+
+
+def check_ssd(case, dev):
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_diag import ssd_diag
+    b, s, h, p, n, chunk, label = case
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(b, s, h, p, generator=gen, device=dev)
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, s, h, generator=gen, device=dev) - 1)
+    A = -torch.exp(torch.randn(h, generator=gen, device=dev) * 0.3)
+    Bm = torch.randn(b, s, n, generator=gen, device=dev) * 0.3
+    Cm = torch.randn(b, s, n, generator=gen, device=dev) * 0.3
+    out = ssd_diag(x, dt, A, Bm, Cm, chunk=chunk)
+    torch.cuda.synchronize()
+    plain = ref.ssd_diag_ref(x, dt, A, Bm, Cm, chunk=chunk)
+    err, rel, ok = close(out, plain, "float32")
+    # the plain version on the card takes its sums in the kernel's own
+    # order (sequential fused multiply-adds) and agrees to the bit at
+    # chunks >= 128; the CPU takes them in another, so hold the kernel
+    # against that too. Only an RMS criterion applies there: cum reaches
+    # about -80 at chunk 256, so cum_i - cum_j, a difference of two such
+    # sums, is off by ~1e-5 (a few float32 ulps of 80) and so is the decay's
+    # relative value: the two plain versions themselves differ by ~1e-4 on
+    # outputs of up to ~26
+    cpu_plain = ref.ssd_diag_ref(*(a.cpu() for a in (x, dt, A, Bm, Cm)),
+                                 chunk=chunk)
+    cpu_err, cpu_rel, _ = close(out.cpu(), cpu_plain, "float32")
+    cpu_ok = cpu_rel <= CPU_REL_RMS
+    q = min(chunk, s)
+    pairs = q * (q + 1) // 2            # the causal half of a chunk
+    # the function's operations, not the kernel's: C·Bᵀ is the same for
+    # every head (one group), so once a chunk; (C·Bᵀ ⊙ L)·(dt·x) once a head
+    n_ops = 2.0 * pairs * b * (s // q) * (n + p * h)
+    n_bytes = 4 * (2 * b * s * h * p + b * s * h + h + 2 * b * s * n)
+    bms, by = bound_ms(n_bytes, n_ops, "float32")
+    return dict(
+        kernel="ssd_diag", label=label, shape=dict(
+            b=b, s=s, h=h, p=p, n=n, chunk=q),
+        dtype="float32", max_abs_err=err, err_rms=rel, ok=ok and cpu_ok,
+        cpu_err=cpu_err, cpu_err_rms=cpu_rel, out_rms=out.pow(2).mean().sqrt().item(),
+        ms=time_ms(lambda: ssd_diag(x, dt, A, Bm, Cm, chunk=chunk)),
+        plain_ms=time_ms(lambda: ref.ssd_diag_ref(x, dt, A, Bm, Cm,
+                                                  chunk=chunk), iters=5),
+        library_ms=None, bound_ms=bms, bound_by=by)
+
+
 # (b, hq, hkv, sq, sk, d, window, q_offset, dtype, label)
 FLASH_CASES = [
     (1, 8, 1, 32, 32, 256, 0, 0, "bfloat16", "path: gemma-2b prefill, bucket 32"),
@@ -227,6 +356,33 @@ DECODE_CASES = [
     (4, 4, 64, 64, [64, 64, 64, 64], "bfloat16", "MHA, full"),
     (8, 1, 4096, 256, [4096] * 32, "bfloat16", "long: gemma-2b B=32 S=4096"),
 ]
+# (hq, hkv, d, page, n_pages, valid_len per row, dtype, label); shuffled
+# tables with a pad entry on page 0
+PAGED_CASES = [
+    (8, 1, 256, 16, 16, [20, 27, 0, 41], "bfloat16",
+     "path: gemma-2b pool, page 16"),
+    (8, 1, 256, 16, 16, [20, 27, 0, 41], "float32", "gemma-2b pool, f32"),
+    (8, 2, 64, 16, 8, [0, 57, 128, 5], "bfloat16", "D 64, GQA"),
+    (8, 2, 64, 16, 8, [0, 57, 128, 5], "float32", "D 64, GQA, f32"),
+    (16, 4, 128, 16, 8, [128, 77, 1, 0], "bfloat16", "D 128"),
+    (16, 4, 128, 16, 8, [128, 77, 1, 0], "float32", "D 128, f32"),
+    (8, 2, 48, 16, 8, [1, 100], "bfloat16", "D 48"),
+    (8, 2, 80, 16, 8, [128, 5], "float32", "D 80, f32"),
+    (8, 1, 256, 16, 256, [4096] * 32, "bfloat16",
+     "long: gemma-2b B=32 4096 tokens"),
+    (8, 1, 256, 16, 256, [4096] * 32, "float32",
+     "long: gemma-2b B=32 4096 tokens, f32"),
+]
+# (b, s, h, p, n, chunk, label): mamba2-2.7b's 80 heads of 64, state 128;
+# the engine's prompt buckets give chunk = min(256, bucket)
+SSD_CASES = [
+    (1, 256, 80, 64, 128, 256, "path: mamba2-2.7b prefill, bucket 256"),
+    (1, 8, 80, 64, 128, 8, "mamba2-2.7b, bucket 8"),
+    (1, 16, 80, 64, 128, 16, "mamba2-2.7b, bucket 16"),
+    (1, 32, 80, 64, 128, 32, "mamba2-2.7b, bucket 32"),
+    (1, 128, 80, 64, 128, 128, "path: mamba2-2.7b prefill, bucket 128"),
+    (1, 2048, 80, 64, 128, 256, "long: mamba2-2.7b S=2048 chunk 256"),
+]
 
 
 # ---------------------------------------------------------------------------
@@ -237,43 +393,175 @@ DECODE_CASES = [
 # arch: (reduced widths, max_seq, prompt lengths, new tokens). gemma3-12b's
 # local layers keep a rolling cache of 64 slots: its 70-token prompt is
 # prefilled into the last 64 slots and every request decodes past the window.
+# mamba2's prompts are no powers of two (the bucket padding runs through the
+# recurrence) and its 70-token prompt spans 8 chunks of 16.
 SMALL_ENGINES = {
     "gemma-2b": (dict(n_layers=2, d_model=256, vocab_size=512), 64,
                  [3, 7, 11, 15, 19], 8),
     "gemma3-12b": (dict(n_layers=2, d_model=128, vocab_size=512), 128,
                    [45, 52, 60, 70], 24),
+    "mamba2-2.7b": (dict(n_layers=2, d_model=256, vocab_size=512), 128,
+                    [5, 13, 29, 70], 8),
 }
 
 
-def small_engine_tokens(arch: str, device: str):
-    """Greedy tokens of a reduced float32 engine: on the card it runs the
-    kernels, on the CPU their plain versions."""
+def small_engine(arch: str, device: str, **kw):
+    """A reduced float32 engine with seed-0 weights: on the card it runs
+    the kernels, on the CPU their plain versions."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
     from repro_torch.serving import ServingEngine
-    widths, max_seq, lengths, new = SMALL_ENGINES[arch]
+    widths, max_seq, _, _ = SMALL_ENGINES[arch]
     cfg = dataclasses.replace(get_config(arch).reduced(**widths),
                               dtype="float32")
     params = init_params(cfg, seed=0, device="cpu")
     params = {k: _to(v, device) for k, v in params.items()}
-    eng = ServingEngine(cfg, params, max_batch=3, max_seq=max_seq,
-                        device=device)
+    return ServingEngine(cfg, params, max_batch=3, max_seq=max_seq,
+                         device=device, **kw)
+
+
+def small_engine_tokens(arch: str, device: str):
+    """Greedy tokens of a reduced float32 engine."""
+    _, _, lengths, new = SMALL_ENGINES[arch]
+    eng = small_engine(arch, device)
     for i, n in enumerate(lengths):
-        eng.submit([(7 * i + j) % cfg.vocab_size for j in range(n)],
+        eng.submit([(7 * i + j) % eng.cfg.vocab_size for j in range(n)],
                    max_new_tokens=new)
     return [r.generated for r in sorted(eng.run_until_idle(),
                                         key=lambda r: r.rid)]
 
 
-def warm_engine_run(eng, prompts, profile: bool) -> dict:
+def evict_resume(eng, prompts, new: int, steps: int = 3):
+    """Serve `prompts`, evicting the first request after `steps` engine
+    steps and resubmitting it once the second is admitted. Returns the
+    tokens of every request, in submission order."""
+    reqs = [eng.submit(prompts[0], max_new_tokens=new)]
+    for _ in range(steps):
+        eng.step()
+    victim = eng.evict(reqs[0].slot)
+    if victim is not reqs[0] or victim.kv is None:
+        fail("the paged engine did not snapshot the evicted request")
+    reqs += [eng.submit(p, max_new_tokens=new) for p in prompts[1:]]
+    eng.step()
+    eng.resubmit(victim)
+    eng.run_until_idle()
+    return [r.generated for r in reqs]
+
+
+def small_paged_run(arch: str, device: str):
+    """A reduced float32 paged engine: the first request is evicted
+    mid-decode and resumed from its pages; for gemma-2b the second prompt
+    opens with the first one's two full blocks (a prefix hit). Returns
+    (tokens, uninterrupted dense tokens, prefix hits, prefills)."""
+    bt = 16
+    head = [(5 * j + 2) % 512 for j in range(2 * bt)]
+    prompts = [head + [9, 8, 7, 6, 5], head + [1, 2, 3], [4, 5, 6, 7, 8, 9]]
+    eng = small_engine(arch, device, paged=True, kv_block_tokens=bt)
+    toks = evict_resume(eng, prompts, new=10)
+    dense = small_engine(arch, device)
+    ref = [dense.submit(p, max_new_tokens=10) for p in prompts]
+    dense.run_until_idle()
+    if eng.kv.free_blocks != eng.kv.n_blocks:
+        fail(f"{arch}: the paged engine did not return every block")
+    return (toks, [r.generated for r in ref], eng.n_prefix_hits,
+            eng.n_prefills)
+
+
+def paged_pool_check(params, cfg):
+    """Full-width paged engine (bf16): a request evicted mid-decode. Right
+    after the eviction the paged kernel reads every layer's pool through
+    the request's page table; it is held against the plain version. The
+    resumed request must end with the uninterrupted dense engine's tokens.
+    Returns the worst errors and, per layer, the query, the paged output
+    and the slot's dense cache taken just before the eviction, for
+    `decode_yardstick`."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.serving import ServingEngine
+    dev = torch.device(DEVICE)
+    prompt = [(13 * j + 5) % cfg.vocab_size for j in range(40)]
+    dense = ServingEngine(cfg, params, max_batch=1, max_seq=256, device=dev)
+    want = dense.submit(prompt, max_new_tokens=24)
+    dense.run_until_idle()
+    eng = ServingEngine(cfg, params, max_batch=1, max_seq=256, device=dev,
+                        paged=True, kv_block_tokens=16)
+    req = eng.submit(prompt, max_new_tokens=24)
+    for _ in range(8):
+        eng.step()
+    slot_cache = eng._extract_slot(req.slot)
+    eng.evict(req.slot)
+    pos = req.kv.position
+    table = torch.tensor([req.pages.blocks], dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    hq, d = cfg.n_heads, cfg.resolved_head_dim
+    worst = {"vs_plain": 0.0, "valid_len": pos,
+             "pages": len(req.pages.blocks), "layers": cfg.n_layers}
+    outs = []
+    for layer in range(cfg.n_layers):
+        kp, vp = eng.kv.pool_views(layer)
+        q = torch.randn(1, hq, d, generator=gen, device=dev).to(kp.dtype)
+        got = ops.paged_attention(q, kp, vp, table, pos, scale=d ** -0.5,
+                                  force_kernel=True)
+        plain = ref.paged_attention_ref(q, kp.transpose(1, 2),
+                                        vp.transpose(1, 2), table, pos,
+                                        scale=d ** -0.5)
+        err, _, ok = close(got, plain, str(kp.dtype).split(".")[-1])
+        if not ok:
+            fail(f"paged kernel on layer {layer}'s pool vs_plain: "
+                 f"err {err:.3e}")
+        worst["vs_plain"] = max(worst["vs_plain"], err)
+        outs.append((q, got, slot_cache[layer]))
+    eng.resubmit(req)
+    eng.run_until_idle()
+    if req.generated != want.generated or eng.n_prefills != 1:
+        fail(f"the resumed request's tokens {req.generated} differ from the "
+             f"uninterrupted run's {want.generated}")
+    return worst, outs
+
+
+def decode_yardstick(worst: dict, outs) -> None:
+    """The paged kernel's outputs on the pool against the decode kernel on
+    the slot's dense cache, per layer. Run outside any path's count: these
+    decode launches only measure the paged ones."""
+    from repro_torch.kernels import ops
+    pos = worst["valid_len"]
+    worst["vs_decode_kernel"] = 0.0
+    for layer, (q, got, cache) in enumerate(outs):
+        d = q.shape[-1]
+        dec = ops.decode_attention(q, cache["k"], cache["v"], pos,
+                                   scale=d ** -0.5, force_kernel=True)
+        err, _, ok = close(got, dec, str(got.dtype).split(".")[-1])
+        if not ok:
+            fail(f"paged kernel on layer {layer}'s pool vs_decode_kernel: "
+                 f"err {err:.3e}")
+        worst["vs_decode_kernel"] = max(worst["vs_decode_kernel"], err)
+
+
+def full_prefix_hit(params, cfg):
+    """Full-width paged engine: a prompt opening with an earlier prompt's
+    two full blocks attaches them and decodes only its suffix. Returns
+    the engine."""
+    import torch
+    from repro_torch.serving import ServingEngine
+    head = [(11 * j + 3) % cfg.vocab_size for j in range(32)]
+    eng = ServingEngine(cfg, params, max_batch=2, max_seq=256,
+                        device=torch.device(DEVICE), paged=True,
+                        kv_block_tokens=16)
+    for tail in ([7, 8, 9, 10, 11], [20, 21, 22]):
+        eng.submit(head + tail, max_new_tokens=8)
+        eng.run_until_idle()
+    return eng
+
+
+def warm_engine_run(eng, prompts, profile: bool, new: int = 16) -> dict:
     """The same prompts again on the warm engine, timed on the host clock
     around work that ends in a synchronise. With `profile`, the run is
     traced with torch.profiler and the device time by kernel printed."""
     import torch
     n0 = len(eng.completed)
     for p in prompts:
-        eng.submit(p, max_new_tokens=16)
+        eng.submit(p, max_new_tokens=new)
     prof = None
     if profile:
         acts = [torch.profiler.ProfilerActivity.CPU,
@@ -330,7 +618,7 @@ def main(argv=None) -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     t_start = time.time()
 
     # 1. card
@@ -359,27 +647,45 @@ def main(argv=None) -> None:
 
     # 3. kernels against their plain versions
     rows = []
-    for case in FLASH_CASES:
-        rows.append(check_flash(case, dev))
-    for case in DECODE_CASES:
-        rows.append(check_decode(case, dev))
-    for r in rows:
-        print(f"{r['kernel']:16s} {r['dtype']:8s} {r['label']:36s} "
-              f"err={r['max_abs_err']:.3e} ({100 * r['err_rms']:.2f}% rms) "
-              f"ms={r['ms']:.4f} "
-              f"plain_ms={r['plain_ms']:.4f} sdpa_ms={r['library_ms']:.4f} "
-              f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']}) "
-              f"{'ok' if r['ok'] else 'MISMATCH'}", flush=True)
+    for check, cases in ((check_flash, FLASH_CASES),
+                         (check_decode, DECODE_CASES),
+                         (check_paged, PAGED_CASES), (check_ssd, SSD_CASES)):
+        for case in cases:
+            r = check(case, dev)
+            rows.append(r)
+            lib_ms = ("none" if r["library_ms"] is None
+                      else f"{r['library_ms']:.4f}")
+            extra = (f" cpu_err={r['cpu_err']:.3e} ({r['cpu_err_rms']:.2e} "
+                     f"rms) out_rms={r['out_rms']:.3e}"
+                     if "cpu_err" in r else "")
+            if "checked_ms" in r:
+                extra += f" checked_ms={r['checked_ms']:.4f}"
+            print(f"{r['kernel']:16s} {r['dtype']:8s} {r['label']:38s} "
+                  f"err={r['max_abs_err']:.3e} ({100 * r['err_rms']:.2f}% "
+                  f"rms){extra} ms={r['ms']:.4f} "
+                  f"plain_ms={r['plain_ms']:.4f} "
+                  f"library_ms={lib_ms} bound_ms={r['bound_ms']:.5f} "
+                  f"({r['bound_by']}) {'ok' if r['ok'] else 'MISMATCH'}",
+                  flush=True)
     bad = [r for r in rows if not r["ok"]]
     if bad:
         fail(f"{len(bad)} kernel check(s) disagree with the plain version: "
              + "; ".join(f"{r['kernel']} {r['label']} {r['dtype']} "
                          f"err={r['max_abs_err']:.3e}" for r in bad))
 
+    # the main paths: every count is set to 0 just before a path runs and
+    # read just after it
+    paths = {}
+
+    def run_path(name, fn):
+        ops.reset_launches()
+        out = fn()
+        paths[name] = ops.kernel_launches()
+        return out
+
     # 4. full-width gemma-2b engine through the launcher
-    ops.reset_launches()
-    eng, done, secs = serve.main(SERVE_ARGS)
-    engine_launches = ops.kernel_launches()
+    eng, done, secs = run_path("gemma-2b", lambda: serve.main(SERVE_ARGS))
+    engine_launches = paths["gemma-2b"]
     n_layers = eng.cfg.n_layers
     toks = sum(len(r.generated) for r in done)
     print(f"engine: {len(done)} requests, {toks} tokens, {secs:.2f} s, "
@@ -408,9 +714,9 @@ def main(argv=None) -> None:
     torch.cuda.empty_cache()
 
     for arch in SMALL_ENGINES:
-        ops.reset_launches()
-        on_card = small_engine_tokens(arch, "cuda")
-        launches = ops.kernel_launches()
+        on_card = run_path(f"reduced {arch}",
+                           lambda arch=arch: small_engine_tokens(arch, DEVICE))
+        launches = paths[f"reduced {arch}"]
         on_cpu = small_engine_tokens(arch, "cpu")
         print(f"reduced f32 {arch} engine, card vs CPU plain path: "
               f"{'same' if on_card == on_cpu else 'DIFFERENT'} greedy "
@@ -418,43 +724,149 @@ def main(argv=None) -> None:
         if on_card != on_cpu:
             fail(f"{arch}: greedy tokens differ: card {on_card} "
                  f"cpu {on_cpu}")
-        if min(launches.values()) <= 0:
-            fail(f"{arch}: the reduced engine did not run both kernels")
+        want = ("ssd_diag",) if arch.startswith("mamba2") \
+            else ("flash_attention", "decode_attention")
+        if min(launches[k] for k in want) <= 0:
+            fail(f"{arch}: the reduced engine did not run {want}")
 
-    # 5. the PerLLM fleet
-    ops.reset_launches()
-    srv = serve.main(FLEET_ARGS)
-    fleet_launches = ops.kernel_launches()
+    # 5. full-width mamba2-2.7b through the launcher, then a reduced paged
+    # mamba2 engine evicting and resuming a request
+    eng, done, secs = run_path("mamba2-2.7b", lambda: serve.main(MAMBA_ARGS))
+    mamba = paths["mamba2-2.7b"]
+    toks = sum(len(r.generated) for r in done)
+    lengths = sorted(len(r.prompt) for r in done)
+    print(f"mamba2 engine: {len(done)} requests (prompts {lengths}), {toks} "
+          f"tokens, {secs:.2f} s, {toks / secs:.1f} tok/s on {name}; "
+          f"launches {mamba}, prefills {eng.n_prefills}, layers "
+          f"{eng.cfg.n_layers}", flush=True)
+    if len(done) != 6 or any(len(r.generated) != 8 for r in done):
+        fail("the mamba2 engine did not finish every request")
+    if any(not 0 <= t < eng.cfg.vocab_size for r in done
+           for t in r.generated):
+        fail("the mamba2 engine produced tokens outside the vocabulary")
+    if mamba["ssd_diag"] != eng.n_prefills * eng.cfg.n_layers:
+        fail("mamba2 prefill did not run the SSD kernel once per layer")
+    if not any(n > 128 for n in lengths):
+        fail("no mamba2 prompt reached the 256 bucket (chunk 256)")
+    warm = warm_engine_run(eng, [r.prompt for r in done], profile, new=8)
+    print(f"mamba2 engine, warm: {warm['tokens']} tokens in "
+          f"{warm['seconds']:.3f} s ({warm['tok_per_s']:.1f} tok/s), "
+          f"{warm['steps']} steps, {warm['ms_per_step']:.2f} ms/step on "
+          f"{name}", flush=True)
+    del eng, done
+    torch.cuda.empty_cache()
+
+    for arch in ("mamba2-2.7b", "gemma-2b"):
+        label = f"reduced paged {arch}"
+        card, card_ref, hits, prefills = run_path(
+            label, lambda arch=arch: small_paged_run(arch, DEVICE))
+        cpu, cpu_ref, cpu_hits, _ = small_paged_run(arch, "cpu")
+        print(f"reduced f32 paged {arch} engine, evict + resubmit: card "
+              f"{'=' if card == cpu else '!='} CPU; resumed request "
+              f"{'=' if card[0] == card_ref[0] else '!='} uninterrupted; "
+              f"prefix hits {hits}, prefills {prefills}; launches "
+              f"{paths[label]}", flush=True)
+        if card != cpu:
+            fail(f"{label}: greedy tokens differ: card {card} cpu {cpu}")
+        if card[0] != card_ref[0] or cpu != cpu_ref:
+            fail(f"{label}: the resumed request's tokens differ from the "
+                 f"uninterrupted run's")
+        if prefills != 3 or hits != cpu_hits \
+                or hits != (1 if arch == "gemma-2b" else 0):
+            fail(f"{label}: {prefills} prefills and {hits} prefix hits")
+
+    # 6. full-width paged gemma-2b: stalls through the launcher; eviction,
+    # the paged kernel on the pool, and a prefix hit on engines of the
+    # same weights
+    peng, pdone, psecs = run_path("paged gemma-2b",
+                                  lambda: serve.main(PAGED_ARGS))
+    paged_launches = paths["paged gemma-2b"]
+    print(f"paged engine: {len(pdone)} requests in {psecs:.2f} s on {name}; "
+          f"{peng.kv.n_blocks} blocks, {peng.n_kv_stalls} admission stalls, "
+          f"launches {paged_launches}", flush=True)
+    if len(pdone) != 8 or any(len(r.generated) != 16 for r in pdone):
+        fail("the paged engine did not finish every request")
+    if peng.n_kv_stalls < 1:
+        fail("the paged engine's pool never stalled admission")
+    if paged_launches["flash_attention"] != peng.n_prefills * n_layers \
+            or paged_launches["decode_attention"] <= 0:
+        fail("the paged engine did not run the flash and decode kernels")
+    if peng.kv.free_blocks != peng.kv.n_blocks:
+        fail("the paged engine did not return every block")
+    pool_rows, pool_outs = run_path(
+        "paged pool", lambda: paged_pool_check(peng.params, peng.cfg))
+    if paths["paged pool"]["paged_attention"] != n_layers:
+        fail("the paged kernel did not run once per layer on the pool")
+    decode_yardstick(pool_rows, pool_outs)
+    del pool_outs
+    print(f"paged kernel on the live pool (gemma-2b, bf16): {pool_rows}",
+          flush=True)
+    heng = run_path("paged prefix", lambda: full_prefix_hit(peng.params,
+                                                            peng.cfg))
+    print(f"paged prefix: {heng.n_prefix_hits} hit(s), "
+          f"{heng.prefix_tokens_reused} prompt tokens reused, "
+          f"{heng.n_prefills} prefills; launches {paths['paged prefix']}",
+          flush=True)
+    if heng.n_prefix_hits < 1 or heng.prefix_tokens_reused < 32:
+        fail("the full-width paged engine took no prefix hit")
+    if any(not 0 <= t < vocab for r in heng.completed for t in r.generated):
+        fail("the prefix-hit engine produced tokens outside the vocabulary")
+    del peng, pdone, heng
+    torch.cuda.empty_cache()
+
+    # 7. the PerLLM fleet, dense and paged
+    srv = run_path("fleet", lambda: serve.main(FLEET_ARGS))
+    fleet_launches = paths["fleet"]
     served = srv.stats["n_served"]
     print(f"fleet: served {served}, per_server "
           f"{srv.stats['per_server_served']}, launches {fleet_launches}",
           flush=True)
     if served != 12:
         fail(f"the fleet served {served} of 12 requests")
-    if min(fleet_launches.values()) <= 0:
+    if min(fleet_launches["flash_attention"],
+           fleet_launches["decode_attention"]) <= 0:
         fail("the fleet did not run both kernels")
+    paged_fleet = FLEET_ARGS + ["--paged"]
+    srv = run_path("paged fleet", lambda: serve.main(paged_fleet))
+    cpu_srv = serve.main([a if a != DEVICE else "cpu" for a in paged_fleet])
+    per_server = srv.stats["per_server_served"]
+    print(f"paged fleet: served {srv.stats['n_served']}, per_server "
+          f"{per_server} (CPU {cpu_srv.stats['per_server_served']}), "
+          f"launches {paths['paged fleet']}", flush=True)
+    if srv.stats["n_served"] != 12 \
+            or per_server != cpu_srv.stats["per_server_served"]:
+        fail("the paged fleet did not serve 12 of 12 as the CPU fleet does")
 
     # result
-    path_rows = {"flash_attention": rows[0], "decode_attention":
-                 rows[len(FLASH_CASES)]}
+    path_rows = {}
+    for r in rows:
+        path_rows.setdefault(r["kernel"], r)
     sources = {
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:80"),
         "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                              "src/repro/kernels/decode_attention.py:64"),
+        "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
+                            "src/repro/kernels/paged_attention.py:75"),
+        "ssd_diag": ("src/repro_torch/kernels/csrc/ssd_diag.cu",
+                     "src/repro/kernels/ssd_diag.py:46"),
     }
     kernels = []
     for kname, r in path_rows.items():
+        by_path = {p: c[kname] for p, c in paths.items() if c[kname]}
+        if not by_path:
+            fail(f"{kname} was launched on no main path")
         kernels.append({
             "name": kname, "route": "cuda", "source": sources[kname][0],
             "replaces": sources[kname][1],
-            "launches": engine_launches[kname] + fleet_launches[kname],
-            "launches_by_path": {"engine": engine_launches[kname],
-                                 "fleet": fleet_launches[kname]},
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "shape": r["shape"], "dtype": r["dtype"]})
+            "library": LIBRARY[kname], "shape": r["shape"],
+            "dtype": r["dtype"],
+            **({"checked_ms": r["checked_ms"]} if "checked_ms" in r
+               else {})})
     print(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -20,7 +20,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("flash_attention.cu", "decode_attention.cu")
+SOURCES = ("flash_attention.cu", "decode_attention.cu", "paged_attention.cu",
+           "ssd_diag.cu")
 HEADERS = ("common.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -108,6 +109,13 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.repro_decode_attention.argtypes = [
         vp, vp, vp, vp, vp, strides, i32, i32, i32, i32, i32, f32, i32, vp]
     lib.repro_decode_attention.restype = i32
+    lib.repro_paged_attention.argtypes = [
+        vp, vp, vp, vp, vp, vp, strides, i32, i32, i32, i32, i32, i32, f32,
+        i32, vp]
+    lib.repro_paged_attention.restype = i32
+    lib.repro_ssd_diag.argtypes = [
+        vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, vp]
+    lib.repro_ssd_diag.restype = i32
     return lib
 
 

@@ -15,6 +15,19 @@ from repro_torch.kernels.ref import decode_attention_ref
 MAX_GROUP = 8     # q-heads per kv-head that one CTA holds in registers
 
 
+def valid_lengths(valid_len, b: int, device) -> torch.Tensor:
+    """An int or (B,) integer `valid_len` as the (B,) contiguous int32
+    tensor on `device` that the decode kernels read."""
+    vl = torch.as_tensor(valid_len, device=device)
+    if vl.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"valid_len must be integer, got {vl.dtype}")
+    vl = vl.to(torch.int32)
+    vl = vl.expand(b) if vl.ndim == 0 else vl
+    if vl.shape != (b,):
+        raise ValueError(f"valid_len shape {tuple(vl.shape)}, expected ({b},)")
+    return vl.contiguous()
+
+
 def decode_attention(q, k, v, valid_len, *, scale: float = 1.0):
     """q: (B, Hq, D); k, v: (B, Hkv, S, D); valid_len: int or (B,) int.
 
@@ -41,13 +54,7 @@ def decode_attention(q, k, v, valid_len, *, scale: float = 1.0):
         raise ValueError("empty attention")
     for name, x in (("q", q), ("k", k), ("v", v)):
         check_operand(name, x, q.dtype, q.device)
-    vl = torch.as_tensor(valid_len, device=q.device)
-    if vl.dtype not in (torch.int32, torch.int64):
-        raise TypeError(f"valid_len must be integer, got {vl.dtype}")
-    vl = vl.to(torch.int32).expand(b).contiguous() if vl.ndim == 0 \
-        else vl.to(torch.int32).contiguous()
-    if vl.shape != (b,):
-        raise ValueError(f"valid_len shape {tuple(vl.shape)}, expected ({b},)")
+    vl = valid_lengths(valid_len, b, q.device)
     out = torch.empty_like(q)
     strides = _build.int64_array(
         [q.stride(0), q.stride(1), *k.stride()[:3], *v.stride()[:3],

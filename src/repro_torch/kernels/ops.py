@@ -1,7 +1,8 @@
-"""Model-layout entry points of the attention kernels.
+"""Model-layout entry points of the kernels.
 
-They take the model's (B, S, H, D) tensors and hand the kernels
-(B, H, S, D) views of them, with no copy. The device picks the path: a CPU
+The attention ones take the model's (B, S, H, D) tensors (and
+(n_pool, page, Hkv, D) page pools) and hand the kernels head-major views of
+them, with no copy; the SSD one takes the model's (B, S, H, P) as it is. The device picks the path: a CPU
 tensor runs the plain version, a CUDA tensor the hand-written kernel, which
 launches or raises. ``force_kernel=True`` on a CPU tensor raises, as the
 JAX package's ``_auto_interpret`` does when the Pallas lowering is forced
@@ -11,6 +12,8 @@ from __future__ import annotations
 
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import paged_attention as _paged
+from repro_torch.kernels import ssd_diag as _ssd
 
 
 def _check_kernel_device(x, force_kernel: bool) -> None:
@@ -45,13 +48,44 @@ def decode_attention(q, k, v, valid_len, *, scale: float = 1.0,
     return out[:, None] if squeeze else out
 
 
+def paged_attention(q, k_pages, v_pages, block_tables, valid_len, *,
+                    scale: float = 1.0, force_kernel: bool = False):
+    """Decode attention over a paged KV pool, as the JAX package's op.
+
+    q: (B, 1, Hq, D) or (B, Hq, D); k_pages, v_pages in model layout
+    (n_pool, page, Hkv, D), any strides with a contiguous last axis (a
+    `PagedKVCache` pool's ``pool[:, :, 0]``); block_tables: (B, n_pages)
+    page ids, padded with 0; valid_len: int or (B,) valid tokens per row."""
+    _check_kernel_device(q, force_kernel)
+    squeeze = q.ndim == 4
+    if squeeze:
+        q = q[:, 0]
+    out = _paged.paged_attention(q, k_pages.transpose(1, 2),
+                                 v_pages.transpose(1, 2), block_tables,
+                                 valid_len, scale=scale)
+    return out[:, None] if squeeze else out
+
+
+def ssd_diag(x, dt, A, Bm, Cm, *, chunk: int = 256,
+             force_kernel: bool = False):
+    """Mamba-2 SSD diagonal block. x: (B, S, H, P); dt: (B, S, H); A: (H,);
+    Bm, Cm: (B, S, N); float32. Returns (B, S, H, P) float32."""
+    _check_kernel_device(x, force_kernel)
+    return _ssd.ssd_diag(x, dt, A, Bm, Cm, chunk=chunk)
+
+
+_KERNELS = {"flash_attention": _fa.flash_attention,
+            "decode_attention": _dec.decode_attention,
+            "paged_attention": _paged.paged_attention,
+            "ssd_diag": _ssd.ssd_diag}
+
+
 def kernel_launches() -> dict:
     """Launch counts of the kernels since the last `reset_launches`."""
-    return {"flash_attention": _fa.flash_attention.launches,
-            "decode_attention": _dec.decode_attention.launches}
+    return {name: fn.launches for name, fn in _KERNELS.items()}
 
 
 def reset_launches() -> None:
-    _fa.flash_attention.launches = 0
-    _dec.decode_attention.launches = 0
+    for fn in _KERNELS.values():
+        fn.launches = 0
 

@@ -1,0 +1,85 @@
+"""Paged decode attention on the card: the wrapper of
+``csrc/paged_attention.cu``.
+
+On a CUDA tensor it launches the hand-written kernel, or raises; on a CPU
+tensor it runs the plain version in ``ref.py``. ``paged_attention.launches``
+counts the kernel's launches.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.decode_attention import MAX_GROUP, valid_lengths
+from repro_torch.kernels.flash_attention import DTYPES, check_operand
+from repro_torch.kernels.ref import paged_attention_ref
+
+# head_dim is split over the 32 lanes of a warp in C = ceil(D / 32) columns
+# each; the kernel is built for C in {2, 3, 4, 8}
+HEAD_DIMS = (48, 64, 80, 96, 128, 256)
+
+
+def paged_attention(q, k_pages, v_pages, block_tables, valid_len, *,
+                    scale: float = 1.0, check_pages: bool = True):
+    """q: (B, Hq, D); k_pages, v_pages: (n_pool, Hkv, page, D) (any strides
+    whose last axis is contiguous); block_tables: (B, n_pages) integer page
+    ids, padded with page 0; valid_len: int or (B,) integer.
+
+    Returns (B, Hq, D) in q.dtype: row b attends to the first
+    ``valid_len[b]`` slots of the pages its table names; a row with
+    valid_len 0 gets the uniform mean of V over every slot of its table.
+    ``check_pages`` checks that every page id lies in the pool, at the cost
+    of one device round trip; a caller whose tables hold only ids from the
+    pool's own allocator (a ``PagedKVCache``'s) may pass False.
+    """
+    if q.device.type == "cpu":
+        return paged_attention_ref(q, k_pages, v_pages, block_tables,
+                                   valid_len, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention runs on cuda or cpu, not {q.device}")
+    b, hq, d = q.shape
+    n_pool, hkv, page, dk = k_pages.shape
+    if dk != d or v_pages.shape != k_pages.shape:
+        raise ValueError(f"shapes q {tuple(q.shape)}, k_pages "
+                         f"{tuple(k_pages.shape)}, v_pages "
+                         f"{tuple(v_pages.shape)} do not match")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
+    if hq % hkv or hq // hkv > MAX_GROUP:
+        raise ValueError(f"q heads {hq} per kv heads {hkv}: the group must "
+                         f"divide and be at most {MAX_GROUP}")
+    for name, x in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
+        check_operand(name, x, q.dtype, q.device)
+    tables = torch.as_tensor(block_tables, device=q.device)
+    if tables.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"block_tables must be integer, got {tables.dtype}")
+    if tables.ndim != 2 or tables.shape[0] != b or tables.shape[1] == 0 \
+            or b == 0:
+        raise ValueError(f"block_tables shape {tuple(tables.shape)}, "
+                         f"expected ({b}, n_pages > 0)")
+    if check_pages:
+        # the kernel would read outside the pool
+        lo, hi = torch.stack(torch.aminmax(tables)).tolist()
+        if lo < 0 or hi >= n_pool:
+            raise ValueError(f"block_tables name pages {lo}..{hi}, outside "
+                             f"the pool's 0..{n_pool - 1}")
+    tables = tables.to(torch.int32).contiguous()
+    vl = valid_lengths(valid_len, b, q.device)
+    out = torch.empty_like(q)
+    strides = _build.int64_array(
+        [q.stride(0), q.stride(1), *k_pages.stride()[:3],
+         *v_pages.stride()[:3], out.stride(0), out.stride(1)])
+    lib = _build.load_library()
+    err = lib.repro_paged_attention(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        tables.data_ptr(), vl.data_ptr(), out.data_ptr(), strides, b, hq,
+        hkv, page, tables.shape[1], d, float(scale), DTYPES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
+                           f"error {err}")
+    paged_attention.launches += 1
+    return out
+
+
+paged_attention.launches = 0

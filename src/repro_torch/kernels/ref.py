@@ -1,10 +1,12 @@
-"""Plain PyTorch versions of the attention kernels.
+"""Plain PyTorch versions of the CUDA kernels.
 
 They compute what the CUDA kernels compute, in the simplest form: the
-whole logits tensor, a finite ``NEG_INF`` mask and a float32 softmax. The
+attention ones the whole logits tensor, a finite ``NEG_INF`` mask and a
+float32 softmax; the SSD one every (query, key) pair of a chunk at once. The
 CPU tests hold them against the JAX oracles, `chip_smoke.py` holds each
 kernel against them on the card, and `repro_torch.kernels.ops` sends a
-CPU tensor here. Layouts are the kernels' own: heads before sequence.
+CPU tensor here. Layouts are the kernels' own: heads before sequence for
+attention, the model's (B, S, H, P) for the SSD block.
 """
 from __future__ import annotations
 
@@ -57,3 +59,51 @@ def decode_attention_ref(q, k, v, valid_len, *, scale: float = 1.0):
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgk,bhkd->bhgd", probs, v.float())
     return out.reshape(b, hq, d).to(q.dtype)
+
+
+def paged_attention_ref(q, k_pages, v_pages, block_tables, valid_len, *,
+                        scale: float = 1.0):
+    """Decode attention through a page table: gather each row's pages into
+    a dense cache, then run `decode_attention_ref`.
+
+    q: (B, Hq, D); k_pages, v_pages: (n_pool, Hkv, page, D); block_tables:
+    (B, n_pages) physical page ids (padded with page 0); valid_len: int,
+    scalar or (B,) tensor. A row with valid_len 0 gets the uniform mean of V
+    over every slot of its table, pad pages included.
+    """
+    b = q.shape[0]
+    hkv, _, d = k_pages.shape[1:]
+    idx = torch.as_tensor(block_tables, device=q.device).long()
+    # (B, n_pages, Hkv, page, D) -> (B, Hkv, n_pages * page, D)
+    k = k_pages[idx].transpose(1, 2).reshape(b, hkv, -1, d)
+    v = v_pages[idx].transpose(1, 2).reshape(b, hkv, -1, d)
+    return decode_attention_ref(q, k, v, valid_len, scale=scale)
+
+
+def ssd_diag_ref(x, dt, A, Bm, Cm, *, chunk: int = 256):
+    """The Mamba-2 SSD diagonal block, per chunk of the sequence:
+    ``Y[i] = sum_{j<=i} (C_i . B_j) exp(cum_i - cum_j) dt_j x_j`` with
+    ``cum = cumsum(dt * A)`` inside the chunk.
+
+    x: (B, S, H, P); dt: (B, S, H) post-softplus; A: (H,) negative;
+    Bm, Cm: (B, S, N). Returns (B, S, H, P) float32.
+    """
+    b, s, h, p = x.shape
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"chunk {chunk} must divide the sequence {s}")
+    nc = s // chunk
+    xr = x.reshape(b, nc, chunk, h, p).float()
+    dtr = dt.reshape(b, nc, chunk, h).float()
+    Br = Bm.reshape(b, nc, chunk, -1).float()
+    Cr = Cm.reshape(b, nc, chunk, -1).float()
+    cum = torch.cumsum(dtr * A.float(), dim=2)
+    dtx = dtr[..., None] * xr
+    scores = torch.einsum("bcqn,bckn->bcqk", Cr, Br)
+    decay = cum[:, :, :, None, :] - cum[:, :, None, :, :]
+    idx = torch.arange(chunk, device=x.device)
+    mask = idx[:, None] >= idx[None, :]
+    lmat = torch.where(mask[None, None, :, :, None], torch.exp(decay),
+                       torch.zeros((), device=x.device))
+    y = torch.einsum("bcqk,bcqkh,bckhp->bcqhp", scores, lmat, dtx)
+    return y.reshape(b, s, h, p)

@@ -13,7 +13,12 @@ the named policy from the registry (see
     PYTHONPATH=src python -m repro_torch.launch.serve --policy perllm \
         --requests 12
 
-The paged KV cache (`--paged` in the JAX launcher) is not ported yet.
+`--paged [KV_BLOCKS]` runs the engine(s) on the paged KV cache: admission
+allocates block-pool pages (and stalls on exhaustion) instead of relying on
+the dense `max_batch x max_seq` reservation; evicted requests keep their
+prefill. `--arch mamba2-2.7b` serves the Mamba-2 family (its prefill runs
+the SSD-diagonal kernel on the card); `--prompt-len LO HI` draws the prompt
+lengths from [LO, HI).
 """
 from __future__ import annotations
 
@@ -36,7 +41,9 @@ def run_fleet(args):
     from repro_torch.serving.perllm_server import PerLLMServer
 
     device = resolve_device(args.device)
-    specs = paper_testbed(n_edge=2)
+    # specs carry the engines' block granularity so the C5 constraint's
+    # blocks-needed estimate uses the same units as the engine pools
+    specs = paper_testbed(n_edge=2, kv_block_tokens=args.kv_block_tokens)
     try:
         policy = make_policy(args.policy, len(specs))
     except KeyError:
@@ -46,12 +53,14 @@ def run_fleet(args):
                                               vocab_size=256)
     cloud_cfg = get_config("gemma3-12b").reduced(n_layers=2, d_model=128,
                                                  vocab_size=256)
+    kv = _kv_kwargs(args)
     engines = [ServingEngine(edge_cfg, init_params(edge_cfg, device=device),
-                             max_batch=2, max_seq=64, device=device)
+                             max_batch=2, max_seq=64, device=device, **kv)
                for _ in range(2)]
     engines.append(ServingEngine(cloud_cfg,
                                  init_params(cloud_cfg, device=device),
-                                 max_batch=4, max_seq=64, device=device))
+                                 max_batch=4, max_seq=64, device=device,
+                                 **kv))
     srv = PerLLMServer(specs, engines, scheduler=policy)
     rng = np.random.default_rng(0)
     t0 = time.time()
@@ -82,11 +91,12 @@ def run_single(args):
     params = init_params(cfg, device=device)
     eng = ServingEngine(cfg, params, max_batch=args.max_batch,
                         max_seq=args.max_seq, device=device,
-                        temperature=args.temperature)
+                        temperature=args.temperature, **_kv_kwargs(args))
     rng = np.random.default_rng(0)
     t0 = time.time()
+    lo, hi = args.prompt_len
     for _ in range(args.requests):
-        plen = int(rng.integers(4, 24))
+        plen = int(rng.integers(lo, hi))
         eng.submit(list(rng.integers(0, cfg.vocab_size, plen)),
                    max_new_tokens=args.max_new)
     done = eng.run_until_idle()
@@ -99,6 +109,14 @@ def run_single(args):
     print(f"{cfg.arch_id}: served {len(done)} requests, {toks} tokens in "
           f"{dt:.1f}s ({toks/dt:.1f} tok/s on {where})")
     return eng, done, dt
+
+
+def _kv_kwargs(args) -> dict:
+    if args.paged is None:
+        return {}
+    return dict(paged=True,
+                kv_blocks=args.paged if args.paged > 0 else None,
+                kv_block_tokens=args.kv_block_tokens)
 
 
 def parser() -> argparse.ArgumentParser:
@@ -115,6 +133,16 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--policy", default=None,
                     help="serve through an edge-cloud fleet scheduled by "
                          "this registered policy (perllm, fineinfer, ...)")
+    ap.add_argument("--paged", type=int, nargs="?", const=0, default=None,
+                    metavar="KV_BLOCKS",
+                    help="paged KV cache: allocate block-pool pages at "
+                         "admission (optional pool size in blocks; bare "
+                         "--paged sizes the pool to the dense equivalent)")
+    ap.add_argument("--kv-block-tokens", type=int, default=16,
+                    help="tokens of KV per block in --paged mode")
+    ap.add_argument("--prompt-len", type=int, nargs=2, default=(4, 24),
+                    metavar=("LO", "HI"),
+                    help="single engine: prompt lengths drawn from [LO, HI)")
     return ap
 
 

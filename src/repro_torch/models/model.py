@@ -86,7 +86,9 @@ def forward(params, batch, *, cfg: ModelConfig, mode: str = "train",
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
                device=None):
-    """Per-layer {"k", "v"} caches of (batch, slots, Hkv, D)."""
+    """One cache dict per layer: attention {"k", "v"} of (batch, slots, Hkv,
+    D), Mamba-2 {"state", "conv"}. ``device="meta"`` gives the shapes alone
+    (the paged cache probes them)."""
     return T.init_stack_cache(cfg, batch, max_seq, dtype=dtype,
                               device=resolve_device(device))
 

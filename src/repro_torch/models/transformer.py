@@ -1,11 +1,13 @@
-"""Block-program transformer assembly (dense family).
+"""Block-program transformer assembly (dense and Mamba-2 families).
 
 An architecture is a *block program*: optional leading ``head`` layers, a
 repeating ``superblock`` and an optional ``tail`` (e.g. gemma3's 5 local :
-1 global superblock, and gemma3-27b's 62 = 10*6 + 2 layers). The JAX package
-scans stacked superblock parameters; the port keeps one parameter dict and
-one cache dict per layer, in execution order, and runs them in a Python
-loop. Cache leaves are batch-first: (B, S, Hkv, D).
+1 global superblock, gemma3-27b's 62 = 10*6 + 2 layers, mamba2's single ssm
+layer 64 times). The JAX package scans stacked superblock parameters; the
+port keeps one parameter dict and one cache dict per layer, in execution
+order, and runs them in a Python loop. Cache leaves are batch-first:
+attention (B, S, Hkv, D) ``k``/``v``, ssm (B, H, P, N) ``state`` and
+(B, d_conv - 1, C) ``conv``.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from typing import List, Tuple
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as SSM
 
 NOT_PORTED = ("is not ported yet (ROADMAP.md §1, queue item 2: the other "
               "model families)")
@@ -21,7 +24,9 @@ NOT_PORTED = ("is not ported yet (ROADMAP.md §1, queue item 2: the other "
 
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
-    """A dense attention layer; the other kinds are not ported yet."""
+    """An attention (``attn``) or Mamba-2 (``ssm``) layer; the JAX
+    package's other kinds (mla, rec, moe, cross) are not ported yet."""
+    kind: str = "attn"        # attn | ssm
     window: int = 0           # 0 -> full attention
 
 
@@ -44,8 +49,11 @@ class BlockProgram:
 
 
 def block_program(cfg: ModelConfig) -> BlockProgram:
-    """The dense family's block program, as the JAX package builds it."""
-    if cfg.family == "ssm" or cfg.rglru is not None or cfg.mla is not None \
+    """The block program of a dense or Mamba-2 model, as the JAX package
+    builds it."""
+    if cfg.family == "ssm":
+        return BlockProgram((), (LayerSpec("ssm"),), cfg.n_layers, ())
+    if cfg.rglru is not None or cfg.mla is not None \
             or cfg.n_experts > 0 or cfg.enc_dec or cfg.mrope:
         raise NotImplementedError(f"{cfg.arch_id} ({cfg.family}) {NOT_PORTED}")
     if cfg.local_global_pattern != (0, 0):
@@ -65,8 +73,14 @@ def block_program(cfg: ModelConfig) -> BlockProgram:
 # ---------------------------------------------------------------------------
 
 
-def init_layer(gen, cfg: ModelConfig, device=None):
+def init_layer(gen, spec: LayerSpec, cfg: ModelConfig, device=None):
     d = cfg.d_model
+    if spec.kind == "ssm":
+        # a mamba block has no separate MLP sublayer
+        return {"norm1": L.init_rmsnorm(d, device),
+                "mix": SSM.init_ssm(gen, cfg, device)}
+    if spec.kind != "attn":
+        raise ValueError(spec.kind)
     return {
         "norm1": L.init_rmsnorm(d, device),
         "mix": L.init_attention(gen, cfg, device),
@@ -75,10 +89,24 @@ def init_layer(gen, cfg: ModelConfig, device=None):
     }
 
 
+def init_layer_cache(spec: LayerSpec, cfg: ModelConfig, batch: int,
+                     max_seq: int, dtype=None, device=None):
+    if spec.kind == "ssm":
+        return SSM.init_ssm_cache(cfg, batch, dtype=dtype, device=device)
+    if spec.kind != "attn":
+        raise ValueError(spec.kind)
+    return L.init_kv_cache(cfg, batch, max_seq, window=spec.window,
+                           dtype=dtype, device=device)
+
+
 def apply_layer(spec: LayerSpec, p, x, *, cfg: ModelConfig, mode: str,
                 cache=None, pos=None, positions=None):
     """Pre-norm residual block. Returns (x, cache')."""
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
+    if spec.kind == "ssm":
+        mix, new_cache = SSM.ssm_layer(p["mix"], h, cfg=cfg, mode=mode,
+                                       cache=cache)
+        return x + mix, new_cache
     mix, new_cache = L.attention_layer(
         p["mix"], h, cfg=cfg, mode=mode, cache=cache, pos=pos,
         window=spec.window, positions=positions)
@@ -94,13 +122,14 @@ def apply_layer(spec: LayerSpec, p, x, *, cfg: ModelConfig, mode: str,
 
 
 def init_stack(gen, cfg: ModelConfig, device=None):
-    return [init_layer(gen, cfg, device) for _ in block_program(cfg).layers()]
+    return [init_layer(gen, spec, cfg, device)
+            for spec in block_program(cfg).layers()]
 
 
 def init_stack_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
                      device=None):
-    return [L.init_kv_cache(cfg, batch, max_seq, window=spec.window,
-                            dtype=dtype, device=device)
+    return [init_layer_cache(spec, cfg, batch, max_seq, dtype=dtype,
+                             device=device)
             for spec in block_program(cfg).layers()]
 
 

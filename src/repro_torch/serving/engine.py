@@ -1,4 +1,4 @@
-"""Continuous-batching serving engine (dense KV cache).
+"""Continuous-batching serving engine.
 
 A fixed pool of `max_batch` KV-cache slots; requests are admitted into free
 slots (prefill) and all slots decode together each step with per-slot
@@ -6,9 +6,20 @@ positions (the `update_cache_seq` vector-position path). This is the
 execution layer a PerLLM "server" runs: the scheduler decides *which*
 server a request goes to, the engine decides *how* it runs there.
 
-Prefill attention runs on the flash kernel and every decode step on the
-decode kernel when the engine runs on the card. The paged KV cache
-(`paged=True` in the JAX package) is not ported yet.
+With `paged=True` the engine's KV capacity is a `PagedKVCache` block pool
+instead of the implicit `max_batch x max_seq` dense reservation: admission
+allocates `ceil((prompt + max_new) / block_tokens)` blocks up front and
+stalls (FIFO) when the pool is exhausted. Eviction snapshots the slot's KV
+into the request's pages (`evict` -> `Request.kv`), so a preempted request
+`resubmit`-ted to the same engine resumes decoding with zero re-prefill;
+`release` drops a request's pages when the work moves elsewhere. A prompt
+whose head matches resident full blocks attaches them copy-on-write and
+decodes only its suffix. The compute view stays the dense per-slot cache,
+as in the JAX package: pages are written at evict (and after prefill, for
+the prefix index) and read at resume.
+
+On the card, prefill attention runs on the flash kernel, every decode step
+on the decode kernel, and a Mamba-2 prefill on the SSD-diagonal kernel.
 """
 from __future__ import annotations
 
@@ -23,11 +34,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as M
 from repro_torch.models.parallel import resolve_device
 from repro_torch.obs.metrics import MetricsRegistry, counter_attr, with_aliases
+from repro_torch.serving.kvcache import KVSnapshot, PagedKVCache, PageTable
 from repro_torch.serving.sampling import sample_tokens
-
-PAGED_NOT_PORTED = ("the paged KV cache is not ported yet (ROADMAP.md §1, "
-                    "queue item 1: serving/kvcache.py + the paged engine "
-                    "path)")
 
 
 @dataclasses.dataclass
@@ -42,6 +50,10 @@ class Request:
     submitted_at: float = 0.0
     first_token_at: float = -1.0
     done_at: float = -1.0
+    # paged-KV runtime: the request's block-pool pages while it holds any,
+    # and the resume snapshot written by `evict` (consumed by re-admission)
+    pages: Optional[PageTable] = None
+    kv: Optional[KVSnapshot] = None
 
     @property
     def done(self) -> bool:
@@ -57,9 +69,9 @@ class ServingEngine:
 
     def __init__(self, cfg: ModelConfig, params, max_batch: int = 8,
                  max_seq: int = 1024, device=None, temperature: float = 0.0,
-                 seed: int = 0, paged: bool = False):
-        if paged:
-            raise NotImplementedError(PAGED_NOT_PORTED)
+                 seed: int = 0, paged: bool = False,
+                 kv_blocks: Optional[int] = None, kv_block_tokens: int = 16,
+                 prefix_sharing: bool = True):
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params are on {params['embed'].device}, the "
@@ -79,27 +91,64 @@ class ServingEngine:
         self.completed: List[Request] = []
         self.metrics = MetricsRegistry()
         self._compiled_shapes: set = set()
-        self.n_prefills = 0
-        # prefix sharing needs the paged cache: both stay 0 here, for the
-        # fleet's stats
-        self.n_prefix_hits = 0
-        self.prefix_tokens_reused = 0
+        self.n_prefills = 0       # prompts actually prefilled (resumes skip)
+        self.n_prefix_hits = 0        # admissions that reused a shared prefix
+        self.prefix_tokens_reused = 0  # prompt tokens those hits skipped
+        # admissions that found the pool exhausted (the queue head waited,
+        # or a resumable continuation passed it); not one of the JAX
+        # engine's stats keys
+        self.n_kv_stalls = 0
+        self.prefix_sharing = bool(prefix_sharing)
         # DVFS pacing hint: the relative clock frequency this engine's host
         # runs at. `step` is frequency-blind; PerLLMServer stretches each
         # tick by 1/freq_scale. Set via `set_freq_scale`.
         self.freq_scale = 1.0
-        # the fleet asks every engine whether it is paged (and for its pool)
-        self.paged = False
-        self.kv = None
+        self.paged = paged
+        self.kv: Optional[PagedKVCache] = None
+        if paged:
+            # default pool: the dense reservation's worth of blocks
+            n_blocks = kv_blocks if kv_blocks is not None \
+                else max_batch * (max_seq // kv_block_tokens)
+            self.kv = PagedKVCache(cfg, n_blocks=n_blocks,
+                                   block_tokens=kv_block_tokens,
+                                   max_seq=max_seq, device=self.device)
 
     # ------------------------------------------------------------------
     def submit(self, prompt: List[int], max_new_tokens: int = 32,
                eos_id: int = -1) -> Request:
+        if self.paged:
+            need = self.kv.blocks_for(len(prompt) + max_new_tokens)
+            if need > self.kv.n_blocks:
+                raise ValueError(
+                    f"request needs {need} KV blocks but the pool only has "
+                    f"{self.kv.n_blocks}; it could never be admitted")
         req = Request(rid=next(self._rid), prompt=list(prompt),
                       max_new_tokens=max_new_tokens, eos_id=eos_id,
                       submitted_at=time.time())
         self.queue.append(req)
         return req
+
+    def resubmit(self, req: Request) -> Request:
+        """Re-enqueue a previously evicted request on this engine.
+
+        Paged engines only: the request re-enters with its pages and
+        `KVSnapshot` attached, so admission reattaches the page table and
+        resumes decoding instead of re-running prefill. (Dense engines have
+        nothing to reattach — submit the remainder as a new request.)"""
+        assert self.paged, "resubmit needs a paged engine (KV survives)"
+        assert req.slot < 0 and not req.done, req
+        assert req.kv is not None and req.pages is not None, \
+            "resubmit is for evicted requests holding a KV snapshot"
+        self.queue.append(req)
+        return req
+
+    def release(self, req: Request) -> None:
+        """Drop an evicted request's pages + snapshot (it is moving to a
+        different server, or its work was abandoned)."""
+        if self.paged and req.pages is not None:
+            self.kv.free(req.pages)
+        req.pages = None
+        req.kv = None
 
     def set_freq_scale(self, freq: float) -> None:
         """Set the host's DVFS pacing (relative frequency, nominal 1.0)."""
@@ -111,6 +160,18 @@ class ServingEngine:
     def active_slots(self) -> List[int]:
         return [i for i, r in enumerate(self.slot_req) if r is not None]
 
+    @property
+    def kv_free_blocks(self) -> Optional[int]:
+        """Free KV blocks (None when the engine is dense)."""
+        return self.kv.free_blocks if self.paged else None
+
+    @property
+    def _sharing(self) -> bool:
+        """Prefix sharing live on this engine (paged + enabled + the
+        pool's leaf layout supports a prefix index)."""
+        return self.paged and self.prefix_sharing \
+            and self.kv.supports_prefix
+
     def _note_compile(self, kind: str, shape) -> None:
         key = (kind, tuple(shape))
         if key not in self._compiled_shapes:
@@ -118,11 +179,16 @@ class ServingEngine:
             self.metrics.inc(f"engine.{kind}_compiles")
 
     def _insert_slot(self, slot: int, single_cache) -> None:
-        # in place: the batch cache's row `slot` takes the prefilled cache
-        # (the JAX engine builds a new cache tree instead)
-        for pool, one in zip(self.cache, single_cache, strict=True):
-            pool["k"][slot] = one["k"][0]
-            pool["v"][slot] = one["v"][0]
+        # in place: every leaf of the batch cache takes row `slot` of the
+        # single-slot cache (the JAX engine builds a new cache tree)
+        for layer, one in zip(self.cache, single_cache, strict=True):
+            for key, leaf in layer.items():
+                leaf[slot] = one[key][0]
+
+    def _extract_slot(self, slot: int):
+        """Row `slot` of every cache leaf, as a batch-1 cache of copies."""
+        return [{key: leaf[slot:slot + 1].clone()
+                 for key, leaf in layer.items()} for layer in self.cache]
 
     # ------------------------------------------------------------------
     def _admit(self) -> None:
@@ -131,25 +197,78 @@ class ServingEngine:
                 continue
             if not self.queue:
                 break
-            req = self.queue.pop(0)
+            req = self.queue[0]
+            if self.paged and req.kv is not None:
+                self.queue.pop(0)
+                self._resume(slot, req)
+                continue
+            if self.paged:
+                req.pages = self.kv.allocate(
+                    len(req.prompt) + req.max_new_tokens,
+                    prompt=req.prompt if self._sharing else None)
+                if req.pages is None:
+                    # KV pressure: admission stalls FIFO — but a resumable
+                    # continuation further back already holds its pages
+                    # (it allocates nothing) and must pass the stalled
+                    # head, or its held blocks could deadlock the pool
+                    self.n_kv_stalls += 1
+                    ri = next((i for i, q in enumerate(self.queue)
+                               if q.kv is not None), None)
+                    if ri is None:
+                        break
+                    self._resume(slot, self.queue.pop(ri))
+                    continue
+            self.queue.pop(0)
             plen = len(req.prompt)
-            # prompts are right-padded to power-of-2 buckets, so the
-            # prefill shapes stay at log2(max_seq); slots >= plen hold
-            # padding K/V that decode overwrites before the position mask
-            # ever reaches them
-            bucket = 1 << max(plen - 1, 1).bit_length()
-            bucket = min(bucket, self.max_seq)
-            padded = req.prompt + [0] * (bucket - plen)
-            prompt = torch.tensor([padded], dtype=torch.long,
-                                  device=self.device)
-            one_cache = M.init_cache(self.cfg, 1, self.max_seq,
-                                     device=self.device)
-            self._note_compile("prefill", prompt.shape)
-            logits, one_cache = M.forward(self.params, {"tokens": prompt},
-                                          cfg=self.cfg, mode="prefill",
-                                          cache=one_cache)
+            skip = 0
+            if self.paged and req.pages is not None \
+                    and req.pages.shared_blocks > 0:
+                skip = req.pages.shared_blocks * self.kv.block_tokens
+            if skip > 0:
+                # prefix hit: the table's read-shared head already holds
+                # the prompt's first `skip` tokens of KV — gather the
+                # pages and prefill only the suffix, one token at a time
+                # through the batch-1 decode step (`allocate` guarantees
+                # skip < plen)
+                one_cache = self.kv.load(req.pages, [])
+                logits = None
+                self._note_compile("decode", (1, 1))
+                for i in range(skip, plen):
+                    tok = torch.tensor([[req.prompt[i]]], dtype=torch.long,
+                                       device=self.device)
+                    pos = torch.tensor([i], dtype=torch.int32,
+                                       device=self.device)
+                    logits, one_cache = M.decode_step(
+                        self.params, tok, one_cache, pos, cfg=self.cfg)
+                last_logits = logits
+                self.n_prefix_hits += 1
+                self.prefix_tokens_reused += skip
+            else:
+                # prompts are right-padded to power-of-2 buckets, so the
+                # prefill shapes stay at log2(max_seq); attention slots
+                # >= plen hold padding K/V that decode overwrites before
+                # the position mask reaches them (an SSM's state absorbs
+                # the padding, as in the JAX engine)
+                bucket = 1 << max(plen - 1, 1).bit_length()
+                bucket = min(bucket, self.max_seq)
+                padded = req.prompt + [0] * (bucket - plen)
+                prompt = torch.tensor([padded], dtype=torch.long,
+                                      device=self.device)
+                one_cache = M.init_cache(self.cfg, 1, self.max_seq,
+                                         device=self.device)
+                self._note_compile("prefill", prompt.shape)
+                logits, one_cache = M.forward(self.params, {"tokens": prompt},
+                                              cfg=self.cfg, mode="prefill",
+                                              cache=one_cache)
+                last_logits = logits[:, plen - 1]
             self.n_prefills += 1
-            tok = int(sample_tokens(logits[:, plen - 1], self.temperature,
+            if self._sharing:
+                # publish the prompt's full blocks while they really hold
+                # its KV (pages are otherwise only written at eviction) so
+                # later admissions can attach them copy-on-write
+                self.kv.store_prefix(req.pages, one_cache, n_tokens=plen)
+                self.kv.register_prefix(req.prompt, req.pages)
+            tok = int(sample_tokens(last_logits, self.temperature,
                                     generator=self._gen)[0])
             self._insert_slot(slot, one_cache)
             req.slot = slot
@@ -160,13 +279,40 @@ class ServingEngine:
             self.slot_req[slot] = req
             self._maybe_finish(slot)
 
+    def _resume(self, slot: int, req: Request) -> None:
+        """Reattach an evicted request: gather its pages back into the
+        slot's dense compute cache and continue decoding — no prefill."""
+        snap = req.kv
+        req.kv = None
+        self._insert_slot(slot, self.kv.load(req.pages, snap.state))
+        req.slot = slot
+        self.positions[slot] = snap.position
+        self.cur_tokens[slot] = snap.cur_token
+        self.slot_req[slot] = req
+        self._maybe_finish(slot)
+
     def evict(self, slot: int, keep_kv: bool = True) -> Optional[Request]:
-        """Preempt the request in `slot`, returning it un-finished with its
-        partial generation. A dense engine drops the KV (`keep_kv` matters
-        only to paged engines); the next admission overwrites the rows."""
+        """Preempt the request occupying `slot`, returning its lane.
+
+        The request is detached un-finished with its partial generation
+        kept on the object. A paged engine snapshots the slot's KV into
+        the request's pages first (`Request.kv`), so `resubmit` here skips
+        re-prefill — unless `keep_kv=False` (a memory-pressure eviction:
+        the pages go straight back to the pool, no snapshot scatter). A
+        dense engine drops the KV either way (the next admission
+        overwrites the rows). The freed lane's `positions`/`cur_tokens`
+        are zeroed. The caller decides whether the remaining tokens run
+        here or elsewhere (and must `release` the pages if elsewhere)."""
         req = self.slot_req[slot]
         if req is None:
             return None
+        if self.paged and not keep_kv:
+            self.release(req)
+        elif self.paged:
+            state = self.kv.store(req.pages, self._extract_slot(slot))
+            req.kv = KVSnapshot(state=state,
+                                position=int(self.positions[slot]),
+                                cur_token=int(self.cur_tokens[slot]))
         self.slot_req[slot] = None
         self.positions[slot] = 0
         self.cur_tokens[slot] = 0
@@ -186,6 +332,7 @@ class ServingEngine:
             self.slot_req[slot] = None
             self.positions[slot] = 0
             self.cur_tokens[slot] = 0
+            self.release(req)      # free-on-finish: pages return to the pool
 
     # ------------------------------------------------------------------
     def step(self) -> int:
@@ -215,18 +362,24 @@ class ServingEngine:
         """Engine-local counters under the canonical key namespace shared
         with ``PerLLMServer.stats`` (old spellings ride along as deprecated
         aliases)."""
-        return with_aliases({
+        out = {
             "n_prefills": self.n_prefills,
             "n_prefix_hits": self.n_prefix_hits,
             "kv_prefill_tokens_saved": self.prefix_tokens_reused,
             "n_queued": len(self.queue),
             "n_active": len(self.active_slots),
             "n_served": len(self.completed),
-        })
+        }
+        if self.paged:
+            out["kv_free_blocks"] = self.kv.free_blocks
+            out["kv_total_blocks"] = self.kv.n_blocks
+        return with_aliases(out)
 
     def run_until_idle(self, max_steps: int = 10_000) -> List[Request]:
         """Step until queue and slots drain. Raises if `max_steps` runs out
-        with work still pending."""
+        with work still pending (with paged KV a stall can also mean the
+        queue head needs blocks held by evicted-but-never-released
+        snapshots)."""
         for _ in range(max_steps):
             if not self.queue and not self.active_slots:
                 return self.completed
@@ -235,5 +388,7 @@ class ServingEngine:
             raise RuntimeError(
                 f"run_until_idle: {len(self.queue)} queued and "
                 f"{len(self.active_slots)} active requests remain after "
-                f"{max_steps} steps")
+                f"{max_steps} steps"
+                + (f" ({self.kv.free_blocks}/{self.kv.n_blocks} KV blocks "
+                   f"free)" if self.paged else ""))
         return self.completed

@@ -1,5 +1,6 @@
 """The port's copies of the JAX package's JAX-free modules stay verbatim,
 and no module of the port loads JAX or the JAX package."""
+import inspect
 import os
 import re
 import subprocess
@@ -32,6 +33,22 @@ def test_copy_is_verbatim(rel):
     assert copy == renamed(original), (
         f"src/repro_torch/{rel} drifted from src/repro/{rel}: re-copy it "
         f"with `repro.` renamed to `repro_torch.`")
+
+
+# the pure-Python bookkeeping of serving/kvcache.py, whose JAX module the
+# port cannot import: copied class by class beside the port's torch pools
+KVCACHE_COPIES = ("BlockAllocator", "_PrefixNode", "PrefixIndex", "PageTable",
+                  "KVSnapshot", "blocks_needed")
+
+
+@pytest.mark.parametrize("name", KVCACHE_COPIES)
+def test_kvcache_copy_is_verbatim(name):
+    from repro.serving import kvcache as jax_kvcache
+    from repro_torch.serving import kvcache
+    original = inspect.getsource(getattr(jax_kvcache, name))
+    assert inspect.getsource(getattr(kvcache, name)) == renamed(original), (
+        f"{name} in src/repro_torch/serving/kvcache.py drifted from "
+        f"src/repro/serving/kvcache.py: re-copy it")
 
 
 def test_every_copied_package_is_complete():

@@ -130,16 +130,13 @@ def test_evict_frees_the_slot():
     assert len(te.run_until_idle()) == 1
 
 
-def test_freq_scale_and_paged_not_ported():
+def test_freq_scale():
     _, te = _engines()
     te.set_freq_scale(0.5)
     assert te.freq_scale == 0.5
     with pytest.raises(ValueError):
         te.set_freq_scale(0.0)
-    assert te.paged is False and te.kv is None
-    _, tcfg = config_pair("gemma-2b", n_layers=2, d_model=128, vocab_size=512)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingEngine(tcfg, te.params, device="cpu", paged=True)
+    assert te.paged is False and te.kv is None and te.kv_free_blocks is None
 
 
 def test_sampling_modes():

@@ -14,9 +14,11 @@ import torch
 from repro.kernels import ref as jref
 from repro.kernels.decode_attention import decode_attention as pallas_decode
 from repro.kernels.flash_attention import flash_attention as pallas_flash
+from repro.kernels.paged_attention import paged_attention as pallas_paged
 from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.paged_attention import paged_attention
 
 DTYPES = [("float32", 2e-5), ("bfloat16", 2e-2)]
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -140,6 +142,13 @@ def test_forcing_the_kernel_on_cpu_raises():
         ops.flash_attention(q, k, k, force_kernel=True)
     with pytest.raises(RuntimeError, match="forced on a cpu tensor"):
         ops.decode_attention(q[:, :1], k, k, 4, force_kernel=True)
+    with pytest.raises(RuntimeError, match="forced on a cpu tensor"):
+        ops.paged_attention(q[:, :1], k, k, torch.zeros(1, 1, dtype=torch.int32),
+                            4, force_kernel=True)
+    x = torch.zeros(1, 8, 2, 4)
+    with pytest.raises(RuntimeError, match="forced on a cpu tensor"):
+        ops.ssd_diag(x, x[..., 0], x[0, 0, :, 0], x[..., 0], x[..., 0],
+                     force_kernel=True)
     # unforced, the same call takes the plain version
     assert ops.flash_attention(q, k, k).shape == q.shape
 
@@ -149,5 +158,112 @@ def test_cpu_path_counts_no_launch():
     q = torch.zeros(1, 8, 2, 64)
     ops.flash_attention(q, q[:, :, :1], q[:, :, :1])
     ops.decode_attention(q[:, :1], q[:, :, :1], q[:, :, :1], 3)
+    ops.paged_attention(q[:, :1], q[:, :, :1], q[:, :, :1],
+                        torch.zeros(1, 2, dtype=torch.int32), 3)
+    x = torch.zeros(1, 8, 2, 4)
+    ops.ssd_diag(x, x[..., 0], x[0, 0, :, 0], x[..., 0], x[..., 0])
     assert ops.kernel_launches() == {"flash_attention": 0,
-                                     "decode_attention": 0}
+                                     "decode_attention": 0,
+                                     "paged_attention": 0, "ssd_diag": 0}
+
+
+# ---------------------------------------------------------------------------
+# paged decode: the plain version against the JAX oracle and the Pallas
+# kernel, over the sweep of tests/test_kernels.py
+# ---------------------------------------------------------------------------
+
+
+def _paged_inputs(seed, b, hq, hkv, d, page, n_pages, n_pool, dtype):
+    """Random pools and shuffled page tables, the same in both packages.
+    Pools are in the kernels' (n_pool, Hkv, page, D) layout."""
+    rng = np.random.default_rng(seed)
+    qj, qt = _both(rng.standard_normal((b, hq, d), np.float32), dtype)
+    kj, kt = _both(rng.standard_normal((n_pool, hkv, page, d), np.float32),
+                   dtype)
+    vj, vt = _both(rng.standard_normal((n_pool, hkv, page, d), np.float32),
+                   dtype)
+    tables = rng.permutation(n_pool)[: b * n_pages].reshape(b, n_pages)
+    return (qj, kj, vj), (qt, kt, vt), tables.astype(np.int32)
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("hq,hkv,page", [(4, 4, 16), (8, 2, 32), (8, 1, 64)])
+@pytest.mark.parametrize("valid", [1, 7, 50, -1])
+def test_paged_plain_matches_jax_and_pallas(dtype, tol, hq, hkv, page, valid):
+    """A contiguous cache scattered into shuffled pool pages and read back
+    through the page table: the plain version equals the Pallas paged
+    kernel, the JAX oracle and plain decode on the contiguous cache."""
+    b, d, n_pages = 2, 64, 128 // page
+    s = n_pages * page
+    n_pool = b * n_pages + 3
+    rng = np.random.default_rng(16)
+    q = rng.standard_normal((b, hq, d), np.float32)
+    k = rng.standard_normal((b, hkv, s, d), np.float32)
+    v = rng.standard_normal((b, hkv, s, d), np.float32)
+    tables = rng.permutation(n_pool)[: b * n_pages].reshape(b, n_pages)
+    pools = []
+    for x in (k, v):
+        pool = np.zeros((n_pool, hkv, page, d), np.float32)
+        split = x.reshape(b, hkv, n_pages, page, d).swapaxes(1, 2)
+        pool[tables.reshape(-1)] = split.reshape(-1, hkv, page, d)
+        pools.append(pool)
+    vl = s if valid == -1 else valid
+    qj, qt = _both(q, dtype)
+    (kpj, kpt), (vpj, vpt) = (_both(x, dtype) for x in pools)
+    tab = tables.astype(np.int32)
+    out = paged_attention(qt, kpt, vpt, torch.from_numpy(tab), vl,
+                          scale=0.125)
+    pallas = pallas_paged(qj, kpj, vpj, jnp.asarray(tab), vl, scale=0.125,
+                          interpret=True)
+    ref = jref.paged_attention_ref(qj, kpj, vpj, jnp.asarray(tab), vl,
+                                   scale=0.125)
+    _, kt = _both(k, dtype)
+    _, vt = _both(v, dtype)
+    contiguous = decode_attention(qt, kt, vt, vl, scale=0.125)
+    for other in (pallas, ref, contiguous):
+        np.testing.assert_allclose(_np(out), _np(other), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_paged_plain_ragged_valid_lengths(dtype, tol):
+    """Per-row valid lengths, 0 included (the uniform mean of V over every
+    slot of the row's table, pad pages included); pad entries alias page 0
+    and other rows' pages; the model-layout op takes the pools as
+    (n_pool, page, Hkv, D)."""
+    b, hq, hkv, d, page, n_pages = 3, 8, 2, 64, 16, 8
+    (qj, kj, vj), (qt, kt, vt), tab = _paged_inputs(
+        17, b, hq, hkv, d, page, n_pages, b * n_pages, dtype)
+    tab[0, -2:] = 0                           # padded with page 0
+    tab[1, -1] = tab[2, 0]                    # aliasing a live page
+    vl = np.array([0, 57, page * n_pages], np.int32)
+    out = paged_attention(qt, kt, vt, torch.from_numpy(tab),
+                          torch.from_numpy(vl), scale=0.125)
+    pallas = pallas_paged(qj, kj, vj, jnp.asarray(tab), jnp.asarray(vl),
+                          scale=0.125, interpret=True)
+    ref = jref.paged_attention_ref(qj, kj, vj, jnp.asarray(tab),
+                                   jnp.asarray(vl), scale=0.125)
+    np.testing.assert_allclose(_np(out), _np(pallas), rtol=tol, atol=tol)
+    np.testing.assert_allclose(_np(out), _np(ref), rtol=tol, atol=tol)
+    from repro.kernels import ops as jops
+    out2 = ops.paged_attention(qt[:, None], kt.transpose(1, 2),
+                               vt.transpose(1, 2), torch.from_numpy(tab),
+                               torch.from_numpy(vl), scale=0.125)
+    ref2 = jops.paged_attention(qj[:, None], jnp.swapaxes(kj, 1, 2),
+                                jnp.swapaxes(vj, 1, 2), jnp.asarray(tab),
+                                jnp.asarray(vl), scale=0.125)
+    assert out2.shape == (b, 1, hq, d)
+    np.testing.assert_allclose(_np(out2), _np(ref2), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("d", [48, 80])
+def test_paged_plain_nonpow2_head_dim(dtype, tol, d):
+    b, hq, hkv, page, n_pages = 2, 8, 2, 16, 8
+    (qj, kj, vj), (qt, kt, vt), tab = _paged_inputs(
+        18, b, hq, hkv, d, page, n_pages, b * n_pages, dtype)
+    for vl in (1, 100, page * n_pages):
+        out = paged_attention(qt, kt, vt, torch.from_numpy(tab), vl,
+                              scale=d ** -0.5)
+        ref = jref.paged_attention_ref(qj, kj, vj, jnp.asarray(tab), vl,
+                                       scale=d ** -0.5)
+        np.testing.assert_allclose(_np(out), _np(ref), rtol=tol, atol=tol)

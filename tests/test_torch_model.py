@@ -21,6 +21,7 @@ from repro_torch.models import (
     decode_step, forward, init_cache, init_params, prefill,
 )
 from repro_torch.models.convert import cache_from_jax
+from repro_torch.models.transformer import block_program
 
 ARCHS = ["gemma-2b", "gemma3-12b", "llama2-7b", "yi-6b"]
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -178,3 +179,14 @@ def test_entry_points_default_to_cuda():
             init_params(tcfg)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             init_cache(tcfg, 1, 8)
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "deepseek-moe-16b",
+                                  "minicpm3-4b", "recurrentgemma-2b",
+                                  "qwen2-vl-2b", "whisper-base"])
+def test_block_program_refuses_unported_families(arch):
+    """The dense and Mamba-2 families are ported; MoE, MLA, RG-LRU, M-RoPE
+    and encoder-decoder models raise rather than run a wrong program."""
+    _, tcfg = config_pair(arch)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        block_program(tcfg)
