@@ -8,13 +8,17 @@ fails:
 1. card: its name and power limit;
 2. build: the four CUDA kernels from the sources in this checkout, with
    ptxas's register / shared-memory / spill lines;
-3. kernels: each kernel against its plain PyTorch version on the card at the
-   serving path's shapes and more (head_dims, windows, ragged tiles and
-   ragged valid lengths, shuffled page tables, long shapes), bf16 and f32,
-   with the kernel's time, the plain version's, one PyTorch library call's
-   where one computes the same function (scaled_dot_product_attention, a
-   yardstick the port never calls) and the least time the card could take
-   (the bound);
+3. kernels: the bf16 flash kernel's one-tile tensor-core self-test at each
+   head_dim (wgmma, swizzle and descriptors against plain matrix
+   products); then each kernel against its plain PyTorch version on the
+   card at the serving path's shapes and more (head_dims, windows, ragged
+   tiles and ragged valid lengths, shuffled page tables, long shapes), bf16
+   and f32, with the kernel's time by the event loop (`ms`, the wrapper's
+   host cost included) and its device time a call by torch.profiler over
+   the same loop (`device_us`), the plain version's time, one PyTorch
+   library call's where one computes the same function
+   (scaled_dot_product_attention, a yardstick the port never calls) and
+   the least time the card could take (the bound);
 4. engine: full-width gemma-2b (bf16, random weights from a seed) served
    through `repro_torch.launch.serve`, with the kernels' launch counts
    read around the run; then reduced float32 gemma-2b, gemma3-12b (decoding
@@ -107,6 +111,45 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_us(fns, iters: int = 20) -> list:
+    """Device time a call, in µs, of each function in `fns`: one
+    torch.profiler trace over `iters` calls of each after a warm-up, each
+    function's loop inside a `record_function` range that ends after a
+    synchronise, and every kernel that starts inside the range summed. It
+    leaves out the host time the event-loop `ms` includes. One trace for all
+    the rows: many short traces in one process now and then come back
+    empty. A row whose kernels the trace does not hold fails the run."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i, fn in enumerate(fns):
+            with record_function(f"chip_smoke_row_{i}"):
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+    events = prof.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    # the CPU ranges; each also has a device-side span of the same name,
+    # which is no kernel
+    ranges = {e.name: e.time_range for e in events
+              if e.name.startswith("chip_smoke_row_") and e.device_type != cuda}
+    kernels = [e.time_range for e in events if e.device_type == cuda
+               and not e.name.startswith("chip_smoke_row_")]
+    out = []
+    for i in range(len(fns)):
+        r = ranges.get(f"chip_smoke_row_{i}")
+        total = 0.0 if r is None else sum(
+            k.elapsed_us() for k in kernels if r.start <= k.start <= r.end)
+        if total <= 0:
+            fail(f"torch.profiler recorded no device time for row {i}")
+        out.append(total / iters)
+    return out
+
+
 def bound_ms(n_bytes: float, n_ops: float, dtype: str):
     t_bytes = n_bytes / HBM_BYTES_PER_S
     t_ops = n_ops / PEAK_OPS_PER_S[dtype]
@@ -193,6 +236,8 @@ def check_flash(case, dev):
         ok=ok,
         ms=time_ms(lambda: flash_attention(q, k, v, window=window,
                                            q_offset=q_offset, scale=scale)),
+        fn=lambda: flash_attention(q, k, v, window=window, q_offset=q_offset,
+                                   scale=scale),
         plain_ms=time_ms(lambda: ref.flash_attention_ref(
             q, k, v, window=window, q_offset=q_offset, scale=scale)),
         library_ms=time_ms(sdpa(q, k, v, mask, scale)),
@@ -228,6 +273,7 @@ def check_decode(case, dev):
             b=b, hq=hq, hkv=hkv, s=s, d=d, valid_len=list(valid)),
         dtype=dtype, max_abs_err=err, err_rms=rel, ok=ok,
         ms=time_ms(lambda: decode_attention(q, k, v, vl, scale=scale)),
+        fn=lambda: decode_attention(q, k, v, vl, scale=scale),
         plain_ms=time_ms(lambda: ref.decode_attention_ref(q, k, v, vl,
                                                           scale=scale)),
         library_ms=time_ms(sdpa(q4, k, v, mask, scale)),
@@ -273,6 +319,8 @@ def check_paged(case, dev):
         # wrapper's page-id check (a device round trip a call)
         ms=time_ms(lambda: paged_attention(q, kt, vt, tables, vl,
                                            scale=scale, check_pages=False)),
+        fn=lambda: paged_attention(q, kt, vt, tables, vl, scale=scale,
+                                   check_pages=False),
         checked_ms=time_ms(lambda: paged_attention(q, kt, vt, tables, vl,
                                                    scale=scale)),
         plain_ms=time_ms(lambda: ref.paged_attention_ref(
@@ -321,9 +369,36 @@ def check_ssd(case, dev):
         dtype="float32", max_abs_err=err, err_rms=rel, ok=ok and cpu_ok,
         cpu_err=cpu_err, cpu_err_rms=cpu_rel, out_rms=out.pow(2).mean().sqrt().item(),
         ms=time_ms(lambda: ssd_diag(x, dt, A, Bm, Cm, chunk=chunk)),
+        fn=lambda: ssd_diag(x, dt, A, Bm, Cm, chunk=chunk),
         plain_ms=time_ms(lambda: ref.ssd_diag_ref(x, dt, A, Bm, Cm,
                                                   chunk=chunk), iters=5),
         library_ms=None, bound_ms=bms, bound_by=by)
+
+
+def tensor_core_selftest(dev) -> None:
+    """The bf16 flash kernel's tensor-core path on one tile at each
+    head_dim, through its own loaders, swizzle, descriptors and wgmma
+    calls: S = Q·Kᵀ and O = bf16(S)·V against plain matrix products on the
+    same tile. Fails the run on a mismatch."""
+    import torch
+    from repro_torch.kernels.flash_attention import tensor_core_selftest \
+        as selftest
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for d in (64, 128, 256):
+        q, k, v = ((torch.randn(64, d, generator=gen, device=dev) * 0.5)
+                   .to(torch.bfloat16) for _ in range(3))
+        s, o = selftest(q, k, v)
+        torch.cuda.synchronize()
+        s_want = q.float() @ k.float().T
+        o_want = s.to(torch.bfloat16).float() @ v.float()
+        s_err = (s - s_want).abs().max().item()
+        o_err = (o - o_want).abs().max().item()
+        ok = torch.allclose(s, s_want, rtol=1e-4, atol=1e-3) \
+            and torch.allclose(o, o_want, rtol=1e-4, atol=1e-3)
+        print(f"tensor-core self-test D={d}: S err={s_err:.3e} O "
+              f"err={o_err:.3e} {'ok' if ok else 'MISMATCH'}", flush=True)
+        if not ok:
+            fail(f"the tensor-core self-test disagrees at D={d}")
 
 
 # (b, hq, hkv, sq, sk, d, window, q_offset, dtype, label)
@@ -343,6 +418,9 @@ FLASH_CASES = [
     (1, 4, 4, 33, 50, 64, 0, 17, "float32", "q_offset, ragged tiles"),
     (1, 4, 2, 96, 96, 64, 64, 0, "float32", "window 64"),
     (1, 8, 1, 2048, 2048, 256, 0, 0, "bfloat16", "long: gemma-2b heads"),
+    (1, 32, 8, 2048, 2048, 128, 0, 0, "bfloat16", "long: llama3-8b heads"),
+    (1, 16, 8, 4096, 4096, 256, 1024, 0, "bfloat16",
+     "long: gemma3 window 1024"),
 ]
 # (hq, hkv, s, d, valid_len per row, dtype, label)
 DECODE_CASES = [
@@ -355,6 +433,7 @@ DECODE_CASES = [
     (32, 4, 100, 128, [100, 50, 1, 7], "float32", "yi-6b heads, ragged"),
     (4, 4, 64, 64, [64, 64, 64, 64], "bfloat16", "MHA, full"),
     (8, 1, 4096, 256, [4096] * 32, "bfloat16", "long: gemma-2b B=32 S=4096"),
+    (8, 1, 4096, 256, [4096] * 4, "bfloat16", "long: gemma-2b B=4 S=4096"),
 ]
 # (hq, hkv, d, page, n_pages, valid_len per row, dtype, label); shuffled
 # tables with a pad entry on page 0
@@ -581,8 +660,13 @@ def warm_engine_run(eng, prompts, profile: bool, new: int = 16) -> dict:
         table = prof.key_averages().table(sort_by="self_device_time_total",
                                           row_limit=25)
         print(table)
+        cuda = torch.autograd.DeviceType.CUDA
+        for e in prof.key_averages():   # the port's kernels, each by name
+            if e.device_type == cuda and "repro::" in e.key and e.count:
+                print(f"kernel {e.key[:90]}: {e.count} launches, "
+                      f"{e.self_device_time_total / e.count:.2f} us a launch")
         busy_us = sum(e.self_device_time_total for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA)
+                      if e.device_type == cuda)
         print(f"device busy {busy_us / 1e3:.1f} ms of {secs * 1e3:.1f} ms "
               f"wall ({100 * busy_us / 1e6 / secs:.1f}%)")
     toks = sum(len(r.generated) for r in eng.completed[n0:])
@@ -646,27 +730,31 @@ def main(argv=None) -> None:
     _build.load_library()
 
     # 3. kernels against their plain versions
-    rows = []
-    for check, cases in ((check_flash, FLASH_CASES),
-                         (check_decode, DECODE_CASES),
-                         (check_paged, PAGED_CASES), (check_ssd, SSD_CASES)):
-        for case in cases:
-            r = check(case, dev)
-            rows.append(r)
-            lib_ms = ("none" if r["library_ms"] is None
-                      else f"{r['library_ms']:.4f}")
-            extra = (f" cpu_err={r['cpu_err']:.3e} ({r['cpu_err_rms']:.2e} "
-                     f"rms) out_rms={r['out_rms']:.3e}"
-                     if "cpu_err" in r else "")
-            if "checked_ms" in r:
-                extra += f" checked_ms={r['checked_ms']:.4f}"
-            print(f"{r['kernel']:16s} {r['dtype']:8s} {r['label']:38s} "
-                  f"err={r['max_abs_err']:.3e} ({100 * r['err_rms']:.2f}% "
-                  f"rms){extra} ms={r['ms']:.4f} "
-                  f"plain_ms={r['plain_ms']:.4f} "
-                  f"library_ms={lib_ms} bound_ms={r['bound_ms']:.5f} "
-                  f"({r['bound_by']}) {'ok' if r['ok'] else 'MISMATCH'}",
-                  flush=True)
+    tensor_core_selftest(dev)
+    rows = [check(case, dev)
+            for check, cases in ((check_flash, FLASH_CASES),
+                                 (check_decode, DECODE_CASES),
+                                 (check_paged, PAGED_CASES),
+                                 (check_ssd, SSD_CASES))
+            for case in cases]
+    for r, us in zip(rows, device_us([r.pop("fn") for r in rows])):
+        r["device_us"] = us
+    for r in rows:
+        lib_ms = ("none" if r["library_ms"] is None
+                  else f"{r['library_ms']:.4f}")
+        extra = (f" cpu_err={r['cpu_err']:.3e} ({r['cpu_err_rms']:.2e} "
+                 f"rms) out_rms={r['out_rms']:.3e}"
+                 if "cpu_err" in r else "")
+        if "checked_ms" in r:
+            extra += f" checked_ms={r['checked_ms']:.4f}"
+        print(f"{r['kernel']:16s} {r['dtype']:8s} {r['label']:38s} "
+              f"err={r['max_abs_err']:.3e} ({100 * r['err_rms']:.2f}% "
+              f"rms){extra} ms={r['ms']:.4f} "
+              f"device_us={r['device_us']:.2f} "
+              f"plain_ms={r['plain_ms']:.4f} "
+              f"library_ms={lib_ms} bound_ms={r['bound_ms']:.5f} "
+              f"({r['bound_by']}) {'ok' if r['ok'] else 'MISMATCH'}",
+              flush=True)
     bad = [r for r in rows if not r["ok"]]
     if bad:
         fail(f"{len(bad)} kernel check(s) disagree with the plain version: "
@@ -861,6 +949,7 @@ def main(argv=None) -> None:
             "replaces": sources[kname][1],
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "device_us": r["device_us"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "library": LIBRARY[kname], "shape": r["shape"],

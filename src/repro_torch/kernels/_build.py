@@ -22,7 +22,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("flash_attention.cu", "decode_attention.cu", "paged_attention.cu",
            "ssd_diag.cu")
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "flash_tiles.cuh", "split_kv.cuh", "wgmma.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v")
@@ -106,8 +106,11 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         vp, vp, vp, vp, strides, i32, i32, i32, i32, i32, i32, i32, i32, i32,
         f32, i32, vp]
     lib.repro_flash_attention.restype = i32
+    lib.repro_flash_selftest.argtypes = [vp, vp, vp, vp, vp, i32, vp]
+    lib.repro_flash_selftest.restype = i32
     lib.repro_decode_attention.argtypes = [
-        vp, vp, vp, vp, vp, strides, i32, i32, i32, i32, i32, f32, i32, vp]
+        vp, vp, vp, vp, vp, vp, strides, i32, i32, i32, i32, i32, i32, i32,
+        f32, i32, vp]
     lib.repro_decode_attention.restype = i32
     lib.repro_paged_attention.argtypes = [
         vp, vp, vp, vp, vp, vp, strides, i32, i32, i32, i32, i32, i32, f32,
@@ -124,6 +127,14 @@ def load_library() -> ctypes.CDLL:
     """Build if needed and load the kernels' library, once per process."""
     path, _ = build()
     return bind(ctypes.CDLL(str(path)))
+
+
+def raw_stream(device) -> int:
+    """The current CUDA stream of `device` as the integer the C entry points
+    take, in one C++ call (`torch.cuda.current_stream` builds a Stream
+    object through several Python calls every launch)."""
+    import torch
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def int64_array(values) -> ctypes.Array:

@@ -1,16 +1,21 @@
-"""Decode attention on the card: the wrapper of ``csrc/decode_attention.cu``.
+"""Decode attention on the card: the wrapper of ``csrc/decode_attention.cu``,
+a split-KV (flash-decoding) kernel and its combine pass.
 
-On a CUDA tensor it launches the hand-written kernel, or raises; on a CPU
+On a CUDA tensor it launches the hand-written kernels, or raises; on a CPU
 tensor it runs the plain version in ``ref.py``. ``decode_attention.launches``
-counts the kernel's launches.
+counts the wrapper's calls that launched: one a call, however many kernels
+the call runs (the split kernel, and the combine where there are splits).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention import DTYPES, HEAD_DIMS, check_operand
-from repro_torch.kernels.ref import decode_attention_ref
+from repro_torch.kernels.flash_attention import (DTYPES, HEAD_DIMS,
+                                                 check_aligned, check_operand)
+from repro_torch.kernels.ref import decode_attention_ref, split_plan
 
 MAX_GROUP = 8     # q-heads per kv-head that one CTA holds in registers
 
@@ -18,6 +23,10 @@ MAX_GROUP = 8     # q-heads per kv-head that one CTA holds in registers
 def valid_lengths(valid_len, b: int, device) -> torch.Tensor:
     """An int or (B,) integer `valid_len` as the (B,) contiguous int32
     tensor on `device` that the decode kernels read."""
+    if isinstance(valid_len, torch.Tensor) and valid_len.dtype == torch.int32 \
+            and valid_len.shape == (b,) and valid_len.device == device \
+            and valid_len.is_contiguous():
+        return valid_len      # the engine's per-row lengths, as they are
     vl = torch.as_tensor(valid_len, device=device)
     if vl.dtype not in (torch.int32, torch.int64):
         raise TypeError(f"valid_len must be integer, got {vl.dtype}")
@@ -28,13 +37,21 @@ def valid_lengths(valid_len, b: int, device) -> torch.Tensor:
     return vl.contiguous()
 
 
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SM count of card ``index``, queried once."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def decode_attention(q, k, v, valid_len, *, scale: float = 1.0):
     """q: (B, Hq, D); k, v: (B, Hkv, S, D); valid_len: int or (B,) int.
 
     Returns (B, Hq, D) in q.dtype. Row b attends to cache slots
     ``[0, valid_len[b])``; a row with valid_len 0 gets the uniform mean of
     its V rows. Any strides whose last axis is contiguous are taken as they
-    are (the model passes (B, S, Hkv, D) caches as transposed views).
+    are (the model passes (B, S, Hkv, D) caches as transposed views); on the
+    card k and v are read as 16-byte vectors, so their pointers and strides
+    must be 16-byte aligned.
     """
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, valid_len, scale=scale)
@@ -54,16 +71,24 @@ def decode_attention(q, k, v, valid_len, *, scale: float = 1.0):
         raise ValueError("empty attention")
     for name, x in (("q", q), ("k", k), ("v", v)):
         check_operand(name, x, q.dtype, q.device)
+    check_aligned("k", k)
+    check_aligned("v", v)
     vl = valid_lengths(valid_len, b, q.device)
     out = torch.empty_like(q)
+    n_split, split_len = split_plan(s, b * hkv, sm_count(q.device.index
+                                                         or 0))
+    # the splits' partial states: (m, l) pairs, then D accumulators each
+    ws = (torch.empty(b * hq * n_split * (d + 2), dtype=torch.float32,
+                      device=q.device) if n_split > 1 else None)
     strides = _build.int64_array(
         [q.stride(0), q.stride(1), *k.stride()[:3], *v.stride()[:3],
          out.stride(0), out.stride(1)])
     lib = _build.load_library()
     err = lib.repro_decode_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), vl.data_ptr(),
-        out.data_ptr(), strides, b, hq, hkv, s, d, float(scale),
-        DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+        out.data_ptr(), None if ws is None else ws.data_ptr(), strides, b,
+        hq, hkv, s, d, n_split, split_len, float(scale), DTYPES[q.dtype],
+        _build.raw_stream(q.device))
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {err}")

@@ -1,9 +1,11 @@
 """Flash attention (prefill) on the card: the wrapper of
 ``csrc/flash_attention.cu``.
 
-On a CUDA tensor it launches the hand-written kernel, or raises; on a CPU
-tensor it runs the plain version in ``ref.py``. ``flash_attention.launches``
-counts the kernel's launches.
+On a CUDA tensor it launches the hand-written kernel for its dtype, or
+raises: bfloat16 runs the tensor-core (wgmma) kernel, float32 the CUDA-core
+kernel that keeps the f32 tolerance. On a CPU tensor it runs the plain
+version in ``ref.py``. ``flash_attention.launches`` counts the kernel's
+launches.
 """
 from __future__ import annotations
 
@@ -29,13 +31,28 @@ def check_operand(name: str, x: torch.Tensor, dtype, device) -> None:
                          f"strides {x.stride()}")
 
 
+def check_aligned(name: str, x: torch.Tensor) -> None:
+    """Raise unless ``x`` can be read as 16-byte vectors: its pointer and
+    every stride of an axis longer than 1 a multiple of 16 bytes."""
+    elem = x.element_size()
+    bad = x.data_ptr() % 16
+    for st, n in zip(x.stride()[:-1], x.shape[:-1]):
+        bad = bad or (n > 1 and (st * elem) % 16)
+    if bad:
+        raise ValueError(
+            f"{name} must be 16-byte aligned for the kernel's vector loads "
+            f"(pointer {x.data_ptr():#x}, strides {x.stride()}, "
+            f"{elem}-byte elements)")
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     q_offset: int = 0, scale: float = 1.0):
     """q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D) -> (B, Hq, Sq, D) in q.dtype.
 
     Any strides whose last axis is contiguous are taken as they are, so
     views of (B, S, H, D) model tensors need no copy. D must be 64, 128 or
-    256 and Hq a multiple of Hkv.
+    256 and Hq a multiple of Hkv. In bfloat16 the kernel copies 16-byte
+    chunks, so pointers and strides must be 16-byte aligned.
     """
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
@@ -56,6 +73,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     for name, x in (("q", q), ("k", k), ("v", v)):
         check_operand(name, x, q.dtype, q.device)
     out = torch.empty_like(q)       # keeps q's strides
+    if q.dtype == torch.bfloat16:
+        for name, x in (("q", q), ("k", k), ("v", v), ("out", out)):
+            check_aligned(name, x)
     strides = _build.int64_array(
         [s for x in (q, k, v, out) for s in (x.stride(0), x.stride(1),
                                              x.stride(2))])
@@ -63,8 +83,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     err = lib.repro_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
         b, hq, hkv, sq, sk, d, int(causal), int(window), int(q_offset),
-        float(scale), DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+        float(scale), DTYPES[q.dtype], _build.raw_stream(q.device))
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
@@ -73,3 +92,31 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 flash_attention.launches = 0
+
+
+def tensor_core_selftest(q, k, v):
+    """One tile of the bf16 kernel's tensor-core path on the card, through
+    its own loaders, swizzle, descriptors and wgmma calls.
+
+    q, k, v: (64, D) bfloat16 on the card, D in HEAD_DIMS. Returns (s, o):
+    s = q.kᵀ (64, 64) and o = bf16(s).v (64, D), both float32, for a
+    comparison with plain matrix products. Counts no launch.
+    """
+    d = q.shape[1]
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.shape != (64, d) or x.dtype != torch.bfloat16 \
+                or x.device.type != "cuda" or not x.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous (64, {d}) bfloat16 "
+                             f"tensor on the card, got {tuple(x.shape)} "
+                             f"{x.dtype} on {x.device}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
+    s = torch.empty(64, 64, dtype=torch.float32, device=q.device)
+    o = torch.empty(64, d, dtype=torch.float32, device=q.device)
+    err = _build.load_library().repro_flash_selftest(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), s.data_ptr(), o.data_ptr(),
+        d, _build.raw_stream(q.device))
+    if err != 0:
+        raise RuntimeError(f"the tensor-core self-test failed to launch: CUDA "
+                           f"error {err}")
+    return s, o

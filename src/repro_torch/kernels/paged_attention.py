@@ -74,7 +74,7 @@ def paged_attention(q, k_pages, v_pages, block_tables, valid_len, *,
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         tables.data_ptr(), vl.data_ptr(), out.data_ptr(), strides, b, hq,
         hkv, page, tables.shape[1], d, float(scale), DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+        _build.raw_stream(q.device))
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {err}")

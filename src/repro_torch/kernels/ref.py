@@ -11,8 +11,12 @@ attention, the model's (B, S, H, P) for the SSD block.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
+# split-KV decode: the fewest slots a split holds (a cache this short, as
+# the serving path's 256 slots, runs in one launch with no combine pass)
+MIN_SPLIT_SLOTS = 256
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
@@ -59,6 +63,76 @@ def decode_attention_ref(q, k, v, valid_len, *, scale: float = 1.0):
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgk,bhkd->bhgd", probs, v.float())
     return out.reshape(b, hq, d).to(q.dtype)
+
+
+def split_plan(s: int, rows: int, sms: int) -> tuple[int, int]:
+    """(n_split, split_len) of a split-KV decode over ``s`` cache slots for
+    ``rows`` (batch, kv-head) pairs on a card of ``sms`` SMs.
+
+    It fills the card in one wave of CTAs, about one an SM (the bf16 kernel's
+    K/V ring takes 135 KB of shared memory at D = 256), and gives no split
+    fewer than ``MIN_SPLIT_SLOTS`` slots. It reads only shapes: the valid
+    lengths lie on the card, and reading them would cost a device round trip
+    a layer. The decode wrapper and `decode_attention_split_ref` both take it
+    from here.
+    """
+    n = max(1, min(sms // max(rows, 1), s // MIN_SPLIT_SLOTS))
+    split_len = -(-s // n)
+    return -(-s // split_len), split_len
+
+
+def decode_partials_ref(q, k, v, valid_len, *, scale: float, n_split: int,
+                        split_len: int):
+    """The per-split softmax states of split-KV decode, in float32.
+
+    Split i covers slots ``[i * split_len, (i + 1) * split_len)`` of the
+    ``n`` slots a row reads (``min(valid_len, S)``, or all S with the finite
+    mask when valid_len is 0). Returns m, l of (B, Hq, n_split) and acc of
+    (B, Hq, n_split, D); a split with no slot has m = -inf, l = 0, acc = 0.
+    """
+    b, hq, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    g = hq // hkv
+    qg = q.reshape(b, hkv, g, d).float()
+    logits = torch.einsum("bhgd,bhkd->bhgk", qg, k.float()) * scale
+    vl = torch.as_tensor(valid_len, device=q.device).reshape(-1).expand(b)
+    n = torch.where(vl > 0, torch.clamp(vl, max=s), torch.full_like(vl, s))
+    present = torch.arange(s, device=q.device)[None, :] < n[:, None]
+    logits = torch.where((vl > 0)[:, None, None, None], logits,
+                         torch.full_like(logits, NEG_INF))
+    logits = torch.where(present[:, None, None, :], logits,
+                         torch.full_like(logits, -torch.inf))
+    pad = n_split * split_len - s
+    logits = F.pad(logits, (0, pad), value=-torch.inf).reshape(
+        b, hkv, g, n_split, split_len)
+    vs = F.pad(v.float(), (0, 0, 0, pad)).reshape(b, hkv, n_split, split_len, d)
+    m = logits.amax(-1)
+    empty = m == -torch.inf
+    p = torch.where(empty[..., None], torch.zeros_like(logits),
+                    torch.exp(logits - m[..., None]))
+    acc = torch.einsum("bhgnk,bhnkd->bhgnd", p, vs)
+    return (m.reshape(b, hq, n_split), p.sum(-1).reshape(b, hq, n_split),
+            acc.reshape(b, hq, n_split, d))
+
+
+def combine_partials_ref(m, l, acc):
+    """Merge the splits' states (m, l: (..., n_split); acc: (..., n_split,
+    D)) into the normalised rows (..., D), float32."""
+    mx = m.amax(-1, keepdim=True)
+    f = torch.where(m == -torch.inf, torch.zeros_like(m), torch.exp(m - mx))
+    num = (f[..., None] * acc).sum(-2)
+    return num / torch.clamp((f * l).sum(-1), min=1e-30)[..., None]
+
+
+def decode_attention_split_ref(q, k, v, valid_len, *, scale: float = 1.0,
+                               sms: int = 132):
+    """`decode_attention_ref` computed as the split-KV kernel computes it:
+    the wrapper's split rule for a card of ``sms`` SMs, per-split partial
+    states, then the combine. Returns (B, Hq, D) in q.dtype."""
+    n_split, split_len = split_plan(k.shape[2], q.shape[0] * k.shape[1], sms)
+    m, l, acc = decode_partials_ref(q, k, v, valid_len, scale=scale,
+                                    n_split=n_split, split_len=split_len)
+    return combine_partials_ref(m, l, acc).to(q.dtype)
 
 
 def paged_attention_ref(q, k_pages, v_pages, block_tables, valid_len, *,

@@ -46,7 +46,7 @@ def ssd_diag(x, dt, A, Bm, Cm, *, chunk: int = 256):
     err = lib.repro_ssd_diag(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
         Cm.data_ptr(), out.data_ptr(), b, s, h, p, n, chunk,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        _build.raw_stream(x.device))
     if err != 0:
         raise RuntimeError(f"ssd_diag kernel launch failed: CUDA error {err}")
     ssd_diag.launches += 1

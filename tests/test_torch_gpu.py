@@ -276,3 +276,150 @@ def test_paged_kernel_without_the_page_check_is_the_same_launch(cuda):
     unchecked = paged_attention(q, pool, pool, tables, vl, check_pages=False)
     assert torch.equal(checked, unchecked)
     assert ops.kernel_launches()["paged_attention"] == 2
+
+
+# ---------------------------------------------------------------------------
+# the bf16 tensor-core flash kernel and the split-KV decode kernel
+# ---------------------------------------------------------------------------
+
+
+def _rms_ok(out, ref):
+    """Max error under 5% of the plain output's RMS: at long shapes |out| is
+    about the bf16 tolerance, so allclose alone would pass a dropped tile."""
+    err = (out.float() - ref.float()).abs().max().item()
+    return err <= 0.05 * ref.float().pow(2).mean().sqrt().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_tensor_core_selftest_one_tile(cuda, d):
+    """One tile through the kernel's loaders, 128-byte swizzle, wgmma
+    descriptors and both wgmma forms: S = Q.Kᵀ from shared memory, O =
+    bf16(S).V with P from registers and V through the transpose bit."""
+    from repro_torch.kernels.flash_attention import tensor_core_selftest
+    q, k, v = (torch.from_numpy(_normal(60 + i, 64, d) * 0.5).to(
+        cuda, torch.bfloat16) for i in range(3))
+    s, o = tensor_core_selftest(q, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(s, q.float() @ k.float().T, rtol=1e-4,
+                               atol=1e-3)
+    want = s.to(torch.bfloat16).float() @ v.float()
+    torch.testing.assert_close(o, want, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [0, 16, 1024])
+@pytest.mark.parametrize("sq", [4, 8, 40, 128, 1000])
+@pytest.mark.parametrize("g", [1, 2, 8])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_tensor_core_sweep(cuda, d, g, sq, window):
+    """bf16 prefill on the tensor-core kernel: GQA packing of g q-heads,
+    ragged prompt buckets, windows, against the plain version."""
+    hkv = 2
+    q = torch.from_numpy(_normal(50, 1, g * hkv, sq, d)).to(cuda,
+                                                           torch.bfloat16)
+    k = torch.from_numpy(_normal(51, 1, hkv, sq, d)).to(cuda, torch.bfloat16)
+    v = torch.from_numpy(_normal(52, 1, hkv, sq, d)).to(cuda, torch.bfloat16)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, window=window, scale=d ** -0.5)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    ref = tref.flash_attention_ref(q, k, v, window=window, scale=d ** -0.5)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2,
+                               atol=2e-2)
+    assert _rms_ok(out, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,window,q_offset", [
+    (1, 8, 1, 40, 100, 256, 0, 60),       # a prefix-hit suffix
+    (2, 4, 2, 128, 1000, 128, 0, 872),
+    (1, 16, 8, 100, 300, 64, 64, 200),
+    (1, 8, 1, 5, 200, 64, 0, 195),
+    (1, 4, 4, 1000, 1000, 128, 0, 0),
+    (1, 2, 1, 300, 700, 256, 1024, 400),
+])
+def test_flash_offsets_and_ragged_on_cuda(cuda, dtype, tol, b, hq, hkv, sq,
+                                          sk, d, window, q_offset):
+    """Sq != Sk with q_offset and long ragged rows: bf16 on the tensor-core
+    kernel, float32 still on the CUDA-core kernel at 2e-5."""
+    dt = TORCH_DT[dtype]
+    q = torch.from_numpy(_normal(53, b, hq, sq, d)).to(cuda, dt)
+    k = torch.from_numpy(_normal(54, b, hkv, sk, d)).to(cuda, dt)
+    v = torch.from_numpy(_normal(55, b, hkv, sk, d)).to(cuda, dt)
+    out = flash_attention(q, k, v, window=window, q_offset=q_offset,
+                          scale=d ** -0.5)
+    torch.cuda.synchronize()
+    ref = tref.flash_attention_ref(q, k, v, window=window, q_offset=q_offset,
+                                   scale=d ** -0.5)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    assert _rms_ok(out, ref)
+
+
+@pytest.mark.gpu
+def test_flash_bf16_long_sum_of_small_p(cuda):
+    """Sk = 4096: P is rounded to bf16 before P.V, and many small P values
+    are summed; the output stays within the bf16 tolerance and 5% of the
+    RMS."""
+    q = torch.from_numpy(_normal(56, 1, 8, 4096, 128)).to(cuda,
+                                                         torch.bfloat16)
+    k = torch.from_numpy(_normal(57, 1, 1, 4096, 128)).to(cuda,
+                                                         torch.bfloat16)
+    v = torch.from_numpy(_normal(58, 1, 1, 4096, 128)).to(cuda,
+                                                         torch.bfloat16)
+    out = flash_attention(q, k, v, scale=128 ** -0.5)
+    ref = tref.flash_attention_ref(q, k, v, scale=128 ** -0.5)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2,
+                               atol=2e-2)
+    assert _rms_ok(out, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("b", [1, 4, 32])
+def test_decode_split_boundaries_on_cuda(cuda, dtype, tol, b):
+    """Split-KV decode where the splits behave differently: valid_len 0
+    (every split masked: the uniform mean), 1, a multiple of the split
+    length, one past it, S, and rows whose later splits are empty; the
+    plain split-KV version with the wrapper's own split rule agrees."""
+    from repro_torch.kernels.decode_attention import sm_count
+    hq, hkv, s, d = 8, 1, 1024, 128
+    n_split, split_len = tref.split_plan(s, b * hkv, sm_count(0))
+    assert n_split > 1
+    edges = [0, 1, split_len, split_len + 1, s, split_len - 1, 2 * split_len,
+             s - 1]
+    valid = [edges[i % len(edges)] for i in range(b)]
+    dt = TORCH_DT[dtype]
+    q = torch.from_numpy(_normal(59, b, hq, d)).to(cuda, dt)
+    k = torch.from_numpy(_normal(60, b, hkv, s, d)).to(cuda, dt)
+    v = torch.from_numpy(_normal(61, b, hkv, s, d)).to(cuda, dt)
+    vl = torch.tensor(valid, dtype=torch.int32, device=cuda)
+    before = decode_attention.launches
+    out = decode_attention(q, k, v, vl, scale=d ** -0.5)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1   # one a call
+    ref = tref.decode_attention_ref(q, k, v, vl, scale=d ** -0.5)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    split = tref.decode_attention_split_ref(q, k, v, vl, scale=d ** -0.5,
+                                            sms=sm_count(0))
+    torch.testing.assert_close(out.float(), split.float(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.gpu
+def test_kernels_raise_on_misaligned_views(cuda):
+    """The bf16 flash kernel and the decode kernel read 16-byte vectors: a
+    view whose pointer or stride is not 16-byte aligned raises, it is not
+    sent elsewhere."""
+    buf = torch.zeros(1, 2, 64, 72, device=cuda, dtype=torch.bfloat16)
+    odd = buf[..., 1:65]                 # pointer 2 bytes past alignment
+    q = torch.zeros(1, 2, 64, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention(q, odd, odd)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        decode_attention(q[:, :, 0], odd, odd, 3)
+    strided = torch.zeros(1, 2, 64, 68, device=cuda,
+                          dtype=torch.bfloat16)[..., :64]   # 136-byte rows
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        decode_attention(q[:, :, 0], strided, strided, 3)

@@ -1,0 +1,124 @@
+"""Split-KV (flash-decoding) decode: the split rule that the card's decode
+wrapper uses, and the plain split-KV version built on it (per-split partial
+states, then the combine), held against the plain decode and the JAX
+package's Pallas decode kernel in interpret mode. The CUDA kernel itself is
+held against these in test_torch_gpu.py, on a card.
+
+Inputs are made with numpy from a seed and handed to both packages.
+Tolerances: float32 2e-5, bfloat16 2e-2, as the JAX kernel tests pin.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.decode_attention import decode_attention as pallas_decode
+from repro_torch.kernels import ref
+from repro_torch.kernels.flash_attention import check_aligned
+
+DTYPES = [("float32", 2e-5), ("bfloat16", 2e-2)]
+TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+JAX_DT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+
+
+def _normal(seed, *shape):
+    return np.random.default_rng(seed).standard_normal(shape, np.float32)
+
+
+@pytest.mark.parametrize("s,rows,sms,want", [
+    (4096, 32, 132, (4, 1024)),    # gemma-2b at B = 32: one wave, 128 CTAs
+    (4096, 4, 132, (16, 256)),     # B = 4: capped at 256-slot splits
+    (256, 4, 132, (1, 256)),       # the serving path's cache: one launch
+    (64, 2, 132, (1, 64)),         # too short to split
+    (4096, 400, 132, (1, 4096)),   # the card is full without splits
+    (1000, 8, 16, (2, 500)),       # a smaller card
+    (2048, 2, 132, (8, 256)),
+])
+def test_split_plan_rule(s, rows, sms, want):
+    assert ref.split_plan(s, rows, sms) == want
+
+
+@pytest.mark.parametrize("sms", [8, 132])
+def test_split_plan_covers_every_slot(sms):
+    for s in (1, 7, 63, 64, 65, 127, 256, 1000, 4096, 32768):
+        for rows in (1, 3, 4, 32, 128, 1000):
+            n, length = ref.split_plan(s, rows, sms)
+            assert n >= 1 and (n - 1) * length < s <= n * length
+            assert n == 1 or length >= ref.MIN_SPLIT_SLOTS
+            assert n == 1 or n * rows <= sms       # one wave of CTAs
+
+
+def _edges(length, s, b):
+    """valid_len 0, 1, a split boundary, one past it, S, rows whose later
+    splits are empty, cycled over b rows."""
+    edges = [0, 1, length, length + 1, s, length - 1, min(2 * length, s),
+             s - 1]
+    return np.asarray([edges[i % len(edges)] for i in range(b)], np.int32)
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("b", [1, 4, 32])
+def test_split_plain_matches_decode_and_pallas(dtype, tol, b):
+    hq, hkv, s, d = 4, 2, 512, 64
+    n_split, length = ref.split_plan(s, b * hkv, 132)
+    assert n_split > 1
+    valid = _edges(length, s, b)
+    qn, kn, vn = (_normal(70, b, hq, d), _normal(71, b, hkv, s, d),
+                  _normal(72, b, hkv, s, d))
+    qt, kt, vt = (torch.from_numpy(x).to(TORCH_DT[dtype])
+                  for x in (qn, kn, vn))
+    out = ref.decode_attention_split_ref(qt, kt, vt, torch.from_numpy(valid),
+                                         scale=0.125, sms=132)
+    assert out.dtype == qt.dtype
+    plain = ref.decode_attention_ref(qt, kt, vt, torch.from_numpy(valid),
+                                     scale=0.125)
+    np.testing.assert_allclose(out.float().numpy(), plain.float().numpy(),
+                               rtol=tol, atol=tol)
+    qj, kj, vj = (jnp.asarray(x).astype(JAX_DT[dtype]) for x in (qn, kn, vn))
+    oracle = jref.decode_attention_ref(qj, kj, vj, jnp.asarray(valid),
+                                       scale=0.125)
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(oracle, np.float32), rtol=tol,
+                               atol=tol)
+    # the Pallas kernel takes one valid_len: one call per distinct value
+    for n in sorted(set(valid.tolist())):
+        rows = np.flatnonzero(valid == n)
+        got = pallas_decode(qj[rows], kj[rows], vj[rows], int(n), scale=0.125,
+                            block_k=128, interpret=True)
+        np.testing.assert_allclose(out.float().numpy()[rows],
+                                   np.asarray(got, np.float32), rtol=tol,
+                                   atol=tol)
+
+
+def test_split_partials_of_empty_splits():
+    """A split past a row's valid slots holds m = -inf, l = 0, acc = 0; a
+    row with valid_len 0 covers every split with the finite mask, so every
+    split holds l = its slot count and the combine is the uniform mean."""
+    b, hq, hkv, s, d = 2, 2, 1, 256, 16
+    q = torch.from_numpy(_normal(73, b, hq, d))
+    k = torch.from_numpy(_normal(74, b, hkv, s, d))
+    v = torch.from_numpy(_normal(75, b, hkv, s, d))
+    m, l, acc = ref.decode_partials_ref(q, k, v, torch.tensor([70, 0]),
+                                        scale=0.25, n_split=4, split_len=64)
+    assert torch.isfinite(m[0, :, :2]).all()
+    assert (m[0, :, 2:] == -torch.inf).all() and (l[0, :, 2:] == 0).all()
+    assert (acc[0, :, 2:] == 0).all()
+    assert (m[1] == ref.NEG_INF).all()
+    torch.testing.assert_close(l[1], torch.full((hq, 4), 64.0))
+    out = ref.combine_partials_ref(m, l, acc)
+    torch.testing.assert_close(out[1], v[1].mean(1).expand(hq, d))
+    torch.testing.assert_close(
+        out, ref.decode_attention_ref(q, k, v, torch.tensor([70, 0]),
+                                      scale=0.25), rtol=2e-5, atol=2e-5)
+
+
+def test_check_aligned_takes_model_views_and_refuses_odd_ones():
+    x = torch.zeros(2, 64, 4, 64, dtype=torch.bfloat16)
+    check_aligned("k", x.transpose(1, 2))            # a model-layout view
+    check_aligned("k", x[:, :, :1].transpose(1, 2))  # one head: its stride
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        check_aligned("k", x[..., 1:33])             # pointer off by 2 bytes
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        check_aligned("k", torch.zeros(2, 3, 68,
+                                       dtype=torch.bfloat16)[..., :64])
