@@ -18,7 +18,9 @@ fails:
    the same loop (`device_us`), the plain version's time, one PyTorch
    library call's where one computes the same function
    (scaled_dot_product_attention, a yardstick the port never calls) and
-   the least time the card could take (the bound);
+   the least time the card could take (the bound); the long paged rows
+   also give the decode kernel's device time on the same slots laid out
+   densely (`dense_decode_us`, a yardstick, not a gate);
 4. engine: full-width gemma-2b (bf16, random weights from a seed) served
    through `repro_torch.launch.serve`, with the kernels' launch counts
    read around the run; then reduced float32 gemma-2b, gemma3-12b (decoding
@@ -58,6 +60,7 @@ ROOT = Path(__file__).resolve().parent
 DEVICE = "cuda"                    # where every main path runs
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM memory rate
 PEAK_OPS_PER_S = {"bfloat16": 989e12,   # dense tensor-core rate
+                  "tf32": 494.7e12,     # dense TF32 tensor-core rate
                   "float32": 67e12}     # float32 outside the tensor cores
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 REL_RMS = 0.05                     # max error / RMS of the plain output
@@ -303,6 +306,13 @@ def check_paged(case, dev):
     torch.cuda.synchronize()
     plain = ref.paged_attention_ref(q, kt, vt, tables, vl, scale=scale)
     err, rel, ok = close(out, plain, dtype)
+    yardstick = {}
+    if label.startswith("long"):
+        # the decode kernel on the same slots laid out densely
+        from repro_torch.kernels.decode_attention import decode_attention
+        kd, vd = ref.gather_pages(kt, tables), ref.gather_pages(vt, tables)
+        yardstick["dense_fn"] = lambda: decode_attention(q, kd, vd, vl,
+                                                         scale=scale)
     span = n_pages * page
     slots = sum(min(x, span) if x > 0 else span for x in valid)  # slots read
     elem = q.element_size()
@@ -325,7 +335,7 @@ def check_paged(case, dev):
                                                    scale=scale)),
         plain_ms=time_ms(lambda: ref.paged_attention_ref(
             q, kt, vt, tables, vl, scale=scale)),
-        library_ms=None, bound_ms=bms, bound_by=by)
+        library_ms=None, bound_ms=bms, bound_by=by, **yardstick)
 
 
 def check_ssd(case, dev):
@@ -359,10 +369,12 @@ def check_ssd(case, dev):
     q = min(chunk, s)
     pairs = q * (q + 1) // 2            # the causal half of a chunk
     # the function's operations, not the kernel's: C·Bᵀ is the same for
-    # every head (one group), so once a chunk; (C·Bᵀ ⊙ L)·(dt·x) once a head
+    # every head (one group), so once a chunk; (C·Bᵀ ⊙ L)·(dt·x) once a head.
+    # The kernel runs both products on the tensor cores (3xTF32), so the
+    # operations are counted at the TF32 tensor-core rate
     n_ops = 2.0 * pairs * b * (s // q) * (n + p * h)
     n_bytes = 4 * (2 * b * s * h * p + b * s * h + h + 2 * b * s * n)
-    bms, by = bound_ms(n_bytes, n_ops, "float32")
+    bms, by = bound_ms(n_bytes, n_ops, "tf32")
     return dict(
         kernel="ssd_diag", label=label, shape=dict(
             b=b, s=s, h=h, p=p, n=n, chunk=q),
@@ -737,8 +749,13 @@ def main(argv=None) -> None:
                                  (check_paged, PAGED_CASES),
                                  (check_ssd, SSD_CASES))
             for case in cases]
-    for r, us in zip(rows, device_us([r.pop("fn") for r in rows])):
+    fns = [r.pop("fn") for r in rows]
+    yard = [(r, r.pop("dense_fn")) for r in rows if "dense_fn" in r]
+    times = device_us(fns + [fn for _, fn in yard])
+    for r, us in zip(rows, times[:len(rows)], strict=True):
         r["device_us"] = us
+    for (r, _), us in zip(yard, times[len(rows):], strict=True):
+        r["dense_decode_us"] = us
     for r in rows:
         lib_ms = ("none" if r["library_ms"] is None
                   else f"{r['library_ms']:.4f}")
@@ -747,6 +764,8 @@ def main(argv=None) -> None:
                  if "cpu_err" in r else "")
         if "checked_ms" in r:
             extra += f" checked_ms={r['checked_ms']:.4f}"
+        if "dense_decode_us" in r:
+            extra += f" dense_decode_us={r['dense_decode_us']:.2f}"
         print(f"{r['kernel']:16s} {r['dtype']:8s} {r['label']:38s} "
               f"err={r['max_abs_err']:.3e} ({100 * r['err_rms']:.2f}% "
               f"rms){extra} ms={r['ms']:.4f} "

@@ -22,7 +22,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("flash_attention.cu", "decode_attention.cu", "paged_attention.cu",
            "ssd_diag.cu")
-HEADERS = ("common.cuh", "flash_tiles.cuh", "split_kv.cuh", "wgmma.cuh")
+HEADERS = ("common.cuh", "decode_kernels.cuh", "flash_tiles.cuh", "split_kv.cuh",
+           "wgmma.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v")
@@ -113,11 +114,13 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         f32, i32, vp]
     lib.repro_decode_attention.restype = i32
     lib.repro_paged_attention.argtypes = [
-        vp, vp, vp, vp, vp, vp, strides, i32, i32, i32, i32, i32, i32, f32,
-        i32, vp]
+        vp, vp, vp, vp, vp, vp, vp, strides, i32, i32, i32, i32, i32, i32, i32,
+        i32, f32, i32, vp]
     lib.repro_paged_attention.restype = i32
+    lib.repro_ssd_workspace.argtypes = [i32, i32, i32, i32]
+    lib.repro_ssd_workspace.restype = ctypes.c_int64
     lib.repro_ssd_diag.argtypes = [
-        vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, vp]
+        vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, vp]
     lib.repro_ssd_diag.restype = i32
     return lib
 

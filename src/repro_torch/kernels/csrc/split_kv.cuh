@@ -1,7 +1,8 @@
-// Split-KV (flash-decoding) pieces shared by the decode kernels: the slot
-// range of a split, the merge of a CTA's softmax states through shared
-// memory into either the finished rows or the split's partial state, and
-// the combine pass that merges the splits' partial states.
+// Split-KV (flash-decoding) pieces shared by the decode kernels, dense and
+// paged (decode_kernels.cuh): the slot range of a split, the merge of a
+// CTA's softmax states through shared memory into either the finished rows
+// or the split's partial state, and the combine pass that merges the
+// splits' partial states.
 //
 // Partial states live in one float32 workspace the wrapper allocates: for
 // B rows, Hq q-heads and n_split splits, first (m, l) pairs at
@@ -50,10 +51,10 @@ __device__ __forceinline__ void store_empty(float* ws, int b, int h0, int group,
 // h0 .. h0 + group - 1 and store the finished rows into o when there is one
 // split, else the split's partial state into the workspace. The states lie
 // in shared memory as m_s[kStates][G], l_s[kStates][G] and
-// acc_s[kStates][G][D] (a state that saw no slot holds m = -inf). Every
-// thread of the block takes part; the states must be visible (after a
-// __syncthreads).
-template <typename T, int G, int D, int kStates>
+// acc_s[kStates][G][LD] (a state that saw no slot holds m = -inf; only the
+// first D of a state's LD columns are stored). Every thread of the block
+// takes part; the states must be visible (after a __syncthreads).
+template <typename T, int G, int D, int kStates, int LD = D>
 __device__ __forceinline__ void merge_and_store(const float* m_s, const float* l_s,
                                                 const float* acc_s, int group, int b, int h0,
                                                 int split, int n_split, int hq, int batch, T* o,
@@ -70,7 +71,7 @@ __device__ __forceinline__ void merge_and_store(const float* m_s, const float* l
       if (m == -INFINITY) continue;
       const float f = __expf(m - mx);
       lsum += l_s[w * G + g] * f;
-      a += acc_s[(w * G + g) * D + c] * f;
+      a += acc_s[(w * G + g) * LD + c] * f;
     }
     if (n_split == 1) {
       o[b * os_b + (h0 + g) * os_h + c] = from_f32<T>(a / fmaxf(lsum, 1e-30f));

@@ -43,6 +43,17 @@ def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def split_workspace(s: int, b: int, hq: int, hkv: int, d: int, device):
+    """(n_split, split_len, workspace) of a split-KV decode over ``s`` slots:
+    the split rule of `ref.split_plan` for this card, and the splits'
+    float32 partial states ((m, l) pairs, then D accumulators each), None
+    when there is one split."""
+    n_split, split_len = split_plan(s, b * hkv, sm_count(device.index or 0))
+    ws = (torch.empty(b * hq * n_split * (d + 2), dtype=torch.float32,
+                      device=device) if n_split > 1 else None)
+    return n_split, split_len, ws
+
+
 def decode_attention(q, k, v, valid_len, *, scale: float = 1.0):
     """q: (B, Hq, D); k, v: (B, Hkv, S, D); valid_len: int or (B,) int.
 
@@ -75,11 +86,7 @@ def decode_attention(q, k, v, valid_len, *, scale: float = 1.0):
     check_aligned("v", v)
     vl = valid_lengths(valid_len, b, q.device)
     out = torch.empty_like(q)
-    n_split, split_len = split_plan(s, b * hkv, sm_count(q.device.index
-                                                         or 0))
-    # the splits' partial states: (m, l) pairs, then D accumulators each
-    ws = (torch.empty(b * hq * n_split * (d + 2), dtype=torch.float32,
-                      device=q.device) if n_split > 1 else None)
+    n_split, split_len, ws = split_workspace(s, b, hq, hkv, d, q.device)
     strides = _build.int64_array(
         [q.stride(0), q.stride(1), *k.stride()[:3], *v.stride()[:3],
          out.stride(0), out.stride(1)])

@@ -1,29 +1,34 @@
 """Paged decode attention on the card: the wrapper of
-``csrc/paged_attention.cu``.
+``csrc/paged_attention.cu``, the split-KV decode kernels reading K/V rows
+through a page table, and their combine pass.
 
-On a CUDA tensor it launches the hand-written kernel, or raises; on a CPU
+On a CUDA tensor it launches the hand-written kernels, or raises; on a CPU
 tensor it runs the plain version in ``ref.py``. ``paged_attention.launches``
-counts the kernel's launches.
+counts the wrapper's calls that launched: one a call, however many kernels
+the call runs (the split kernel, and the combine where there are splits).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.decode_attention import MAX_GROUP, valid_lengths
-from repro_torch.kernels.flash_attention import DTYPES, check_operand
+from repro_torch.kernels.decode_attention import (MAX_GROUP, split_workspace,
+                                                  valid_lengths)
+from repro_torch.kernels.flash_attention import (DTYPES, check_aligned,
+                                                 check_operand)
 from repro_torch.kernels.ref import paged_attention_ref
 
-# head_dim is split over the 32 lanes of a warp in C = ceil(D / 32) columns
-# each; the kernel is built for C in {2, 3, 4, 8}
+# the decode kernels' head_dims and the paged pool's 48, 80 and 96
 HEAD_DIMS = (48, 64, 80, 96, 128, 256)
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, valid_len, *,
                     scale: float = 1.0, check_pages: bool = True):
     """q: (B, Hq, D); k_pages, v_pages: (n_pool, Hkv, page, D) (any strides
-    whose last axis is contiguous); block_tables: (B, n_pages) integer page
-    ids, padded with page 0; valid_len: int or (B,) integer.
+    whose last axis is contiguous; on the card the rows are read as 16-byte
+    vectors, so pointers and strides must be 16-byte aligned); block_tables:
+    (B, n_pages) integer page ids, padded with page 0; valid_len: int or
+    (B,) integer.
 
     Returns (B, Hq, D) in q.dtype: row b attends to the first
     ``valid_len[b]`` slots of the pages its table names; a row with
@@ -50,6 +55,8 @@ def paged_attention(q, k_pages, v_pages, block_tables, valid_len, *,
                          f"divide and be at most {MAX_GROUP}")
     for name, x in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
         check_operand(name, x, q.dtype, q.device)
+    check_aligned("k_pages", k_pages)
+    check_aligned("v_pages", v_pages)
     tables = torch.as_tensor(block_tables, device=q.device)
     if tables.dtype not in (torch.int32, torch.int64):
         raise TypeError(f"block_tables must be integer, got {tables.dtype}")
@@ -66,14 +73,19 @@ def paged_attention(q, k_pages, v_pages, block_tables, valid_len, *,
     tables = tables.to(torch.int32).contiguous()
     vl = valid_lengths(valid_len, b, q.device)
     out = torch.empty_like(q)
+    n_pages = tables.shape[1]
+    # the dense decode's split rule over the n_pages * page logical slots
+    n_split, split_len, ws = split_workspace(n_pages * page, b, hq, hkv, d,
+                                             q.device)
     strides = _build.int64_array(
         [q.stride(0), q.stride(1), *k_pages.stride()[:3],
          *v_pages.stride()[:3], out.stride(0), out.stride(1)])
     lib = _build.load_library()
     err = lib.repro_paged_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        tables.data_ptr(), vl.data_ptr(), out.data_ptr(), strides, b, hq,
-        hkv, page, tables.shape[1], d, float(scale), DTYPES[q.dtype],
+        tables.data_ptr(), vl.data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(), strides, b, hq, hkv, page,
+        n_pages, d, n_split, split_len, float(scale), DTYPES[q.dtype],
         _build.raw_stream(q.device))
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "

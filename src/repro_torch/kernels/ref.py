@@ -5,8 +5,11 @@ attention ones the whole logits tensor, a finite ``NEG_INF`` mask and a
 float32 softmax; the SSD one every (query, key) pair of a chunk at once. The
 CPU tests hold them against the JAX oracles, `chip_smoke.py` holds each
 kernel against them on the card, and `repro_torch.kernels.ops` sends a
-CPU tensor here. Layouts are the kernels' own: heads before sequence for
-attention, the model's (B, S, H, P) for the SSD block.
+CPU tensor here. Beside them, plain versions of the kernels' own
+decompositions (split-KV decode, dense and paged; the SSD block in tiles
+with 3xTF32 products), which the tests hold against both. Layouts are the
+kernels' own: heads before sequence for attention, the model's
+(B, S, H, P) for the SSD block.
 """
 from __future__ import annotations
 
@@ -73,8 +76,8 @@ def split_plan(s: int, rows: int, sms: int) -> tuple[int, int]:
     K/V ring takes 135 KB of shared memory at D = 256), and gives no split
     fewer than ``MIN_SPLIT_SLOTS`` slots. It reads only shapes: the valid
     lengths lie on the card, and reading them would cost a device round trip
-    a layer. The decode wrapper and `decode_attention_split_ref` both take it
-    from here.
+    a layer. The decode and paged wrappers and their split-KV plain versions
+    all take it from here.
     """
     n = max(1, min(sms // max(rows, 1), s // MIN_SPLIT_SLOTS))
     split_len = -(-s // n)
@@ -135,6 +138,16 @@ def decode_attention_split_ref(q, k, v, valid_len, *, scale: float = 1.0,
     return combine_partials_ref(m, l, acc).to(q.dtype)
 
 
+def gather_pages(pages, block_tables):
+    """Each row's pages laid out densely: (n_pool, Hkv, page, D) through a
+    (B, n_pages) table -> (B, Hkv, n_pages * page, D)."""
+    idx = torch.as_tensor(block_tables, device=pages.device).long()
+    b = idx.shape[0]
+    hkv, _, d = pages.shape[1:]
+    # (B, n_pages, Hkv, page, D) -> (B, Hkv, n_pages * page, D)
+    return pages[idx].transpose(1, 2).reshape(b, hkv, -1, d)
+
+
 def paged_attention_ref(q, k_pages, v_pages, block_tables, valid_len, *,
                         scale: float = 1.0):
     """Decode attention through a page table: gather each row's pages into
@@ -145,13 +158,23 @@ def paged_attention_ref(q, k_pages, v_pages, block_tables, valid_len, *,
     scalar or (B,) tensor. A row with valid_len 0 gets the uniform mean of V
     over every slot of its table, pad pages included.
     """
-    b = q.shape[0]
-    hkv, _, d = k_pages.shape[1:]
-    idx = torch.as_tensor(block_tables, device=q.device).long()
-    # (B, n_pages, Hkv, page, D) -> (B, Hkv, n_pages * page, D)
-    k = k_pages[idx].transpose(1, 2).reshape(b, hkv, -1, d)
-    v = v_pages[idx].transpose(1, 2).reshape(b, hkv, -1, d)
-    return decode_attention_ref(q, k, v, valid_len, scale=scale)
+    return decode_attention_ref(q, gather_pages(k_pages, block_tables),
+                                gather_pages(v_pages, block_tables),
+                                valid_len, scale=scale)
+
+
+def paged_attention_split_ref(q, k_pages, v_pages, block_tables, valid_len,
+                              *, scale: float = 1.0, sms: int = 132):
+    """`paged_attention_ref` computed as the paged kernel computes it: the
+    dense decode's split rule over the table's ``n_pages * page`` logical
+    slots for a card of ``sms`` SMs, per-split partial states, then the
+    combine. Returns (B, Hq, D) in q.dtype."""
+    k = gather_pages(k_pages, block_tables)
+    v = gather_pages(v_pages, block_tables)
+    n_split, split_len = split_plan(k.shape[2], q.shape[0] * k.shape[1], sms)
+    m, l, acc = decode_partials_ref(q, k, v, valid_len, scale=scale,
+                                    n_split=n_split, split_len=split_len)
+    return combine_partials_ref(m, l, acc).to(q.dtype)
 
 
 def ssd_diag_ref(x, dt, A, Bm, Cm, *, chunk: int = 256):
@@ -180,4 +203,71 @@ def ssd_diag_ref(x, dt, A, Bm, Cm, *, chunk: int = 256):
     lmat = torch.where(mask[None, None, :, :, None], torch.exp(decay),
                        torch.zeros((), device=x.device))
     y = torch.einsum("bcqk,bcqkh,bckhp->bcqhp", scores, lmat, dtx)
+    return y.reshape(b, s, h, p)
+
+
+# the SSD kernel's q- and k-tiles: rows of a tile of C·Bᵀ
+SSD_TILE = 64
+
+
+def tf32_round(x):
+    """float32 -> the nearest TF32 value (10 mantissa bits, ties away from
+    zero), as the SSD kernel rounds an operand for the tensor cores: add half
+    of the dropped part to the bits, then clear the low 13."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def mm_3xtf32(a, b):
+    """``a @ b`` as the SSD kernel's tensor cores take it: each float32
+    operand split into TF32 hi + lo, and lo·hi + hi·lo + hi·hi summed in
+    float32 (lo·lo, some 2^-22 of a product, is left out)."""
+    ah = tf32_round(a)
+    al = tf32_round(a - ah)
+    bh = tf32_round(b)
+    bl = tf32_round(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def ssd_diag_tiled_ref(x, dt, A, Bm, Cm, *, chunk: int = 256):
+    """`ssd_diag_ref` decomposed as the CUDA kernel computes it.
+
+    Per chunk: C·Bᵀ once for all heads, in ``SSD_TILE``-row tiles and only
+    for the causal tile pairs (k-tile <= q-tile); cum = the sequential
+    float32 sum of round(dt * A) per head, in the reference's order; then per
+    (q-tile, head) W = S ⊙ exp(cum_i - cum_j) over the k-tiles up to the
+    diagonal and Y += W·(dt x). Both products in 3xTF32 (`mm_3xtf32`).
+    Shapes as `ssd_diag_ref`; returns (B, S, H, P) float32.
+    """
+    b, s, h, p = x.shape
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"chunk {chunk} must divide the sequence {s}")
+    nc, t = s // chunk, SSD_TILE
+    xr = x.reshape(b, nc, chunk, h, p).float()
+    dtr = dt.reshape(b, nc, chunk, h).float()
+    Br = Bm.reshape(b, nc, chunk, -1).float()
+    Cr = Cm.reshape(b, nc, chunk, -1).float()
+    inc = dtr * A.float()
+    y = torch.zeros_like(xr)
+    for c in range(nc):
+        run = torch.zeros_like(inc[:, c, 0])
+        sums = []
+        for j in range(chunk):
+            run = run + inc[:, c, j]
+            sums.append(run)
+        cum = torch.stack(sums, dim=1)                          # (B, Q, H)
+        dtx = (dtr[:, c, :, :, None] * xr[:, c]).permute(0, 2, 1, 3)
+        for i0 in range(0, chunk, t):
+            ii = torch.arange(i0, min(chunk, i0 + t), device=x.device)
+            acc = torch.zeros(b, h, len(ii), p, device=x.device)
+            for j0 in range(0, i0 + 1, t):
+                jj = torch.arange(j0, min(chunk, j0 + t), device=x.device)
+                scores = mm_3xtf32(Cr[:, c, ii], Br[:, c, jj].transpose(1, 2))
+                decay = cum[:, ii, None, :] - cum[:, None, jj, :]   # (B,I,J,H)
+                live = (jj[None, :] <= ii[:, None])[None, :, :, None]
+                w = torch.where(live, scores[..., None] * torch.exp(decay),
+                                torch.zeros((), device=x.device))
+                acc = acc + mm_3xtf32(w.permute(0, 3, 1, 2), dtx[:, :, jj])
+            y[:, c, ii] = acc.permute(0, 2, 1, 3)
     return y.reshape(b, s, h, p)

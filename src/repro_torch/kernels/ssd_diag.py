@@ -1,9 +1,10 @@
 """The Mamba-2 SSD diagonal block on the card: the wrapper of
-``csrc/ssd_diag.cu``.
+``csrc/ssd_diag.cu``, a scores phase and an apply phase on the tensor cores.
 
-On a CUDA tensor it launches the hand-written kernel, or raises; on a CPU
+On a CUDA tensor it launches the hand-written kernels, or raises; on a CPU
 tensor it runs the plain version in ``ref.py``. ``ssd_diag.launches`` counts
-the kernel's launches.
+the wrapper's calls that launched: one a call, though each call runs two
+kernels (the chunk's C·Bᵀ tiles and cum, then the heads).
 """
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import ssd_diag_ref
 
-MAX_HEAD_DIM = 128   # P: the kernel keeps up to 8 output columns a thread
+MAX_HEAD_DIM = 128   # P: the apply kernel's wgmma tile is at most 64 x 128
 
 
 def ssd_diag(x, dt, A, Bm, Cm, *, chunk: int = 256):
@@ -43,9 +44,12 @@ def ssd_diag(x, dt, A, Bm, Cm, *, chunk: int = 256):
     x, dt, A, Bm, Cm = (t.contiguous() for t in (x, dt, A, Bm, Cm))
     out = torch.empty((b, s, h, p), dtype=torch.float32, device=x.device)
     lib = _build.load_library()
+    # the chunks' score tiles and cum, written by the first kernel
+    ws = torch.empty(lib.repro_ssd_workspace(b, s, h, chunk),
+                     dtype=torch.float32, device=x.device)
     err = lib.repro_ssd_diag(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-        Cm.data_ptr(), out.data_ptr(), b, s, h, p, n, chunk,
+        Cm.data_ptr(), out.data_ptr(), ws.data_ptr(), b, s, h, p, n, chunk,
         _build.raw_stream(x.device))
     if err != 0:
         raise RuntimeError(f"ssd_diag kernel launch failed: CUDA error {err}")

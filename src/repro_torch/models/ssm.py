@@ -3,16 +3,15 @@
 Prefill runs the chunked SSD form: within a chunk, the quadratic diagonal
 block; across chunks, a linear recurrence over the (B, H, P, N) state,
 here a Python loop over chunks carrying the float32 state (the JAX
-package's `lax.scan`). On the card the diagonal block of the whole padded
-sequence comes from the `ssd_diag` CUDA kernel, added after the loop; on
-the CPU the loop computes it with the plain einsum. Decode is the dual
-recurrent form: an O(1) float32 state update per token. The causal conv is
-a 4-tap shifted sum, plain PyTorch.
+package's `lax.scan`). The diagonal block of the whole padded sequence
+comes from one `ssd_diag` call after the loop: the CUDA kernel on the card,
+its plain version on the CPU. Decode is the dual recurrent form: an O(1)
+float32 state update per token. The causal conv is a 4-tap shifted sum,
+plain PyTorch.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -84,20 +83,16 @@ def _causal_conv(u, kernel, conv_state=None):
     return F.silu(out), new_state
 
 
-def ssd_chunked(x, dt, A, Bm, Cm, chunk: int,
-                split_diag: Optional[bool] = None):
+def ssd_chunked(x, dt, A, Bm, Cm, chunk: int):
     """SSD forward, chunk-parallel (Mamba-2 Alg. 1 dual form).
 
     x: (B, S, H, P); dt: (B, S, H) (post-softplus); A: (H,) negative;
     Bm, Cm: (B, S, N), one group broadcast across heads. Returns y
     (B, S, H, P) in x.dtype and the final state (B, H, P, N) float32.
-    With `split_diag` (the default on a CUDA tensor) the diagonal block of
-    the whole padded sequence comes from one `ssd_diag` call after the
-    loop, which runs the CUDA kernel on the card; otherwise the loop
-    computes it chunk by chunk.
+    The loop carries the state across chunks; the diagonal block of the
+    whole padded sequence comes from one `ssd_diag` call after it, which
+    runs the CUDA kernel on the card and its plain version on the CPU.
     """
-    if split_diag is None:
-        split_diag = x.device.type == "cuda"
     b, s, h, p = x.shape
     n = Bm.shape[-1]
     s_orig = s
@@ -116,8 +111,6 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int,
     dtr = dt.reshape(b, nc, chunk, h).to(f32)
     Br = Bm.reshape(b, nc, chunk, n).to(f32)
     Cr = Cm.reshape(b, nc, chunk, n).to(f32)
-    idx = torch.arange(chunk, device=x.device)
-    mask = idx[:, None] >= idx[None, :]
 
     state = torch.zeros((b, h, p, n), dtype=f32, device=x.device)
     ys = []
@@ -128,21 +121,13 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int,
         # contribution of the state carried in from earlier chunks
         y = torch.einsum("bqn,bhpn->bqhp", Cc, state) \
             * torch.exp(cum)[..., None]
-        if not split_diag:
-            scores = torch.einsum("bqn,bkn->bqk", Cc, Bc)
-            decay = cum[:, :, None, :] - cum[:, None, :, :]  # (B, Q, K, H)
-            lmat = torch.where(mask[None, :, :, None], torch.exp(decay),
-                               torch.zeros((), device=x.device))
-            w = scores[..., None] * lmat
-            y = torch.einsum("bqkh,bkhp->bqhp", w, dtx) + y
         decay_to_end = torch.exp(cum[:, -1:, :] - cum)      # (B, Q, H)
         state_c = torch.einsum("bqn,bqh,bqhp->bhpn", Bc, decay_to_end, dtx)
         state = state * torch.exp(cum[:, -1])[:, :, None, None] + state_c
         ys.append(y)
     y = torch.stack(ys, dim=1).reshape(b, s, h, p)
-    if split_diag:
-        y = y + kops.ssd_diag(x.to(f32), dt.to(f32), A, Bm.to(f32),
-                              Cm.to(f32), chunk=chunk)
+    y = y + kops.ssd_diag(x.to(f32), dt.to(f32), A, Bm.to(f32), Cm.to(f32),
+                          chunk=chunk)
     y = y[:, :s_orig]
     return y.to(x.dtype), state
 

@@ -423,3 +423,155 @@ def test_kernels_raise_on_misaligned_views(cuda):
                           dtype=torch.bfloat16)[..., :64]   # 136-byte rows
     with pytest.raises(ValueError, match="16-byte aligned"):
         decode_attention(q[:, :, 0], strided, strided, 3)
+
+
+# ---------------------------------------------------------------------------
+# the paged pool on the split-KV decode kernels, and the SSD kernel on the
+# tensor cores
+# ---------------------------------------------------------------------------
+
+
+def _paged_pool(seed, b, hq, hkv, d, page, n_pages, dtype, cuda):
+    """q, model-layout pools (n_pool, page, Hkv, D) and shuffled tables
+    whose pad entry (the last of row 0) is page 0, which the last row also
+    reads as its first page."""
+    dt = TORCH_DT[dtype]
+    n_pool = b * n_pages + 3
+    q = torch.from_numpy(_normal(seed, b, hq, d)).to(cuda, dt)
+    kp = torch.from_numpy(_normal(seed + 1, n_pool, page, hkv, d)).to(cuda, dt)
+    vp = torch.from_numpy(_normal(seed + 2, n_pool, page, hkv, d)).to(cuda, dt)
+    perm = np.random.default_rng(seed + 3).permutation(n_pool)[: b * n_pages]
+    tables = torch.from_numpy(perm.reshape(b, n_pages).astype(np.int32))
+    tables[-1, 0] = 0
+    tables[0, -1] = 0
+    return q, kp, vp, tables.to(cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("b", [1, 4, 32])
+def test_paged_split_boundaries_on_cuda(cuda, dtype, tol, b):
+    """Split-KV paged decode where splits and pages behave differently:
+    valid_len 0 (every slot of the table, pad pages included: the uniform
+    mean), 1, a split boundary and one past it, a page boundary and one
+    past it, every slot, and rows whose later splits are empty; one launch
+    counted a call; the plain split-KV paged version agrees."""
+    from repro_torch.kernels.decode_attention import sm_count
+    hq, hkv, d, page, n_pages = 8, 1, 128, 16, 64
+    span = page * n_pages
+    n_split, split_len = tref.split_plan(span, b * hkv, sm_count(0))
+    assert n_split > 1
+    edges = [0, 1, split_len, split_len + 1, page, page + 1, span,
+             split_len - 1, 2 * split_len, span - 1]
+    q, kp, vp, tables = _paged_pool(70, b, hq, hkv, d, page, n_pages, dtype,
+                                    cuda)
+    kt, vt = kp.transpose(1, 2), vp.transpose(1, 2)
+    for k0 in range(0, len(edges), b):
+        valid = [edges[(i + k0) % len(edges)] for i in range(b)]
+        vl = torch.tensor(valid, dtype=torch.int32, device=cuda)
+        before = paged_attention.launches
+        out = paged_attention(q, kt, vt, tables, vl, scale=d ** -0.5)
+        torch.cuda.synchronize()
+        assert paged_attention.launches == before + 1
+        want = tref.paged_attention_ref(q, kt, vt, tables, vl,
+                                        scale=d ** -0.5)
+        torch.testing.assert_close(out.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        assert _rms_ok(out, want)
+        split = tref.paged_attention_split_ref(q, kt, vt, tables, vl,
+                                               scale=d ** -0.5,
+                                               sms=sm_count(0))
+        torch.testing.assert_close(out.float(), split.float(), rtol=tol,
+                                   atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("d", [48, 80, 96])
+def test_paged_odd_head_dims_valid_zero_on_cuda(cuda, dtype, tol, d):
+    """head_dims 48, 80 and 96, which the decode wrapper does not take: bf16
+    on the tensor-core kernel, float32 on the CUDA-core kernel with rows
+    padded to a power of two; a row of valid_len 0 among them, and enough
+    slots for several splits."""
+    q, kp, vp, tables = _paged_pool(75, 4, 8, 2, d, 16, 48, dtype, cuda)
+    vl = torch.tensor([0, 1, 700, 768], dtype=torch.int32, device=cuda)
+    out = ops.paged_attention(q, kp, vp, tables, vl, scale=d ** -0.5,
+                              force_kernel=True)
+    torch.cuda.synchronize()
+    want = tref.paged_attention_ref(q, kp.transpose(1, 2),
+                                    vp.transpose(1, 2), tables, vl,
+                                    scale=d ** -0.5)
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+    assert _rms_ok(out, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d,hq,hkv", [(64, 8, 2), (128, 16, 4), (256, 8, 1)])
+def test_paged_and_dense_routes_agree_on_cuda(cuda, dtype, d, hq, hkv):
+    """The paged route and the dense route are one kernel with two row
+    policies: on the same slots, laid out through a shuffled page table or
+    densely, they split alike and give the same output, bit for bit."""
+    b, page, n_pages = 4, 16, 40
+    q, kp, vp, tables = _paged_pool(80, b, hq, hkv, d, page, n_pages, dtype,
+                                    cuda)
+    kt, vt = kp.transpose(1, 2), vp.transpose(1, 2)
+    vl = torch.tensor([0, 17, 512, 640], dtype=torch.int32, device=cuda)
+    paged = paged_attention(q, kt, vt, tables, vl, scale=d ** -0.5)
+    dense = decode_attention(q, tref.gather_pages(kt, tables),
+                             tref.gather_pages(vt, tables), vl,
+                             scale=d ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(paged, dense)
+
+
+def _ssd_args(seed, b, s, h, p, n, cuda):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((b, s, h, p), np.float32))
+    dt = torch.nn.functional.softplus(
+        torch.from_numpy(rng.standard_normal((b, s, h), np.float32)) - 1)
+    A = -torch.exp(torch.from_numpy(
+        rng.standard_normal(h).astype(np.float32)) * 0.3)
+    Bm = torch.from_numpy(rng.standard_normal((b, s, n), np.float32)) * 0.3
+    Cm = torch.from_numpy(rng.standard_normal((b, s, n), np.float32)) * 0.3
+    return [a.to(cuda) for a in (x, dt, A, Bm, Cm)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (1, 2048, 80, 64, 128, 256),   # mamba2-2.7b, a long prompt: 8 chunks
+    (2, 512, 80, 64, 128, 256),
+])
+def test_ssd_diag_long_on_cuda(cuda, b, s, h, p, n, chunk):
+    """Several chunks of 256: every chunk's score tiles and cum in the
+    workspace, one launch counted a call; against the plain version at
+    2e-5, and against the plain version of the kernel's own decomposition
+    (tiled, 3xTF32)."""
+    args = _ssd_args(34, b, s, h, p, n, cuda)
+    before = ssd_diag.launches
+    out = ssd_diag(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_diag.launches == before + 1
+    torch.testing.assert_close(out, tref.ssd_diag_ref(*args, chunk=chunk),
+                               rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(out, tref.ssd_diag_tiled_ref(*args,
+                                                            chunk=chunk),
+                               rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (1, 96, 33, 48, 24, 32),     # 33 heads: a second cum CTA of one head
+    (2, 192, 7, 32, 16, 96),     # a chunk of 96: a ragged last q-tile
+    (1, 24, 5, 18, 10, 8),       # P and N not multiples of 4: 4-byte copies
+    (1, 128, 81, 64, 128, 128),  # one head past mamba2-2.7b's 80
+    (3, 64, 2, 8, 12, 64),       # N not a multiple of 8: zero columns
+])
+def test_ssd_diag_odd_shapes_on_cuda(cuda, b, s, h, p, n, chunk):
+    args = _ssd_args(35, b, s, h, p, n, cuda)
+    before = ssd_diag.launches
+    out = ops.ssd_diag(*args, chunk=chunk, force_kernel=True)
+    torch.cuda.synchronize()
+    assert ssd_diag.launches == before + 1
+    torch.testing.assert_close(out, tref.ssd_diag_ref(*args, chunk=chunk),
+                               rtol=2e-5, atol=2e-5)

@@ -1,8 +1,9 @@
 """Split-KV (flash-decoding) decode: the split rule that the card's decode
-wrapper uses, and the plain split-KV version built on it (per-split partial
-states, then the combine), held against the plain decode and the JAX
-package's Pallas decode kernel in interpret mode. The CUDA kernel itself is
-held against these in test_torch_gpu.py, on a card.
+and paged wrappers use, and the plain split-KV versions built on it
+(per-split partial states, then the combine), dense and through a page
+table, held against the plain versions and the JAX package's Pallas decode
+and paged kernels in interpret mode. The CUDA kernels themselves are held
+against these in test_torch_gpu.py, on a card.
 
 Inputs are made with numpy from a seed and handed to both packages.
 Tolerances: float32 2e-5, bfloat16 2e-2, as the JAX kernel tests pin.
@@ -14,6 +15,7 @@ import torch
 
 from repro.kernels import ref as jref
 from repro.kernels.decode_attention import decode_attention as pallas_decode
+from repro.kernels.paged_attention import paged_attention as pallas_paged
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import check_aligned
 
@@ -122,3 +124,81 @@ def test_check_aligned_takes_model_views_and_refuses_odd_ones():
     with pytest.raises(ValueError, match="16-byte aligned"):
         check_aligned("k", torch.zeros(2, 3, 68,
                                        dtype=torch.bfloat16)[..., :64])
+
+
+# ---------------------------------------------------------------------------
+# paged decode on the split-KV kernel: the dense decode's splits over the
+# table's n_pages * page logical slots
+# ---------------------------------------------------------------------------
+
+PAGED_SPAN = 1024      # logical slots a table names: at least two splits
+
+
+def _paged_case(seed, b, hq, hkv, d, page, dtype):
+    """Pools (n_pool, Hkv, page, D) and shuffled tables whose pad entry
+    (the last of row 0) is page 0, which the last row also reads as its
+    first page: the pad aliases a live page."""
+    n_pages = PAGED_SPAN // page
+    n_pool = b * n_pages + 3
+    qn = _normal(seed, b, hq, d)
+    kn = _normal(seed + 1, n_pool, hkv, page, d)
+    vn = _normal(seed + 2, n_pool, hkv, page, d)
+    perm = np.random.default_rng(seed + 3).permutation(n_pool)[: b * n_pages]
+    tab = perm.reshape(b, n_pages).astype(np.int32)
+    tab[-1, 0] = 0
+    tab[0, -1] = 0
+    return qn, kn, vn, tab
+
+
+def _paged_edges(split_len, page, b):
+    """valid_len 0 and 1, split and page boundaries and one past them,
+    every slot, and rows whose later splits are empty."""
+    edges = [0, 1, split_len, split_len + 1, page, page + 1, PAGED_SPAN,
+             split_len - 1, PAGED_SPAN - 1, 2 * page]
+    if b == 1:
+        return [np.asarray([e], np.int32) for e in edges]
+    return [np.asarray([edges[(i + k) % len(edges)] for i in range(b)],
+                       np.int32) for k in range(0, len(edges), b)]
+
+
+def _check_paged_split(dtype, tol, b, hq, hkv, d, page, seed):
+    qn, kn, vn, tab = _paged_case(seed, b, hq, hkv, d, page, dtype)
+    n_split, split_len = ref.split_plan(PAGED_SPAN, b * hkv, 132)
+    assert n_split > 1
+    qt, kt, vt = (torch.from_numpy(x).to(TORCH_DT[dtype])
+                  for x in (qn, kn, vn))
+    qj, kj, vj = (jnp.asarray(x).astype(JAX_DT[dtype]) for x in (qn, kn, vn))
+    for valid in _paged_edges(split_len, page, b):
+        out = ref.paged_attention_split_ref(qt, kt, vt, torch.from_numpy(tab),
+                                            torch.from_numpy(valid),
+                                            scale=d ** -0.5, sms=132)
+        assert out.dtype == qt.dtype and out.shape == (b, hq, d)
+        plain = ref.paged_attention_ref(qt, kt, vt, torch.from_numpy(tab),
+                                        torch.from_numpy(valid),
+                                        scale=d ** -0.5)
+        np.testing.assert_allclose(out.float().numpy(),
+                                   plain.float().numpy(), rtol=tol, atol=tol)
+        got = pallas_paged(qj, kj, vj, jnp.asarray(tab), jnp.asarray(valid),
+                           scale=d ** -0.5, interpret=True)
+        np.testing.assert_allclose(out.float().numpy(),
+                                   np.asarray(got, np.float32), rtol=tol,
+                                   atol=tol)
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("page", [16, 32, 64])
+@pytest.mark.parametrize("b", [1, 4, 32])
+def test_paged_split_plain_matches_pallas(dtype, tol, b, page):
+    """The plain split-KV paged version (what the paged kernel computes:
+    the split rule over the table's logical slots, partial states, the
+    combine) against the JAX Pallas paged kernel in interpret mode, with
+    valid lengths on split and page boundaries, 0 and 1, and shuffled
+    tables whose pad entry aliases a live page."""
+    _check_paged_split(dtype, tol, b, 4, 2, 64, page, seed=80)
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("d", [48, 80])
+def test_paged_split_plain_odd_head_dims(dtype, tol, d):
+    """head_dims 48 and 80, which only the paged wrapper takes."""
+    _check_paged_split(dtype, tol, 4, 4, 2, d, 16, seed=90)

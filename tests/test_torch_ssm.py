@@ -28,6 +28,7 @@ from repro.models.ssm import ssd_chunked as jax_ssd_chunked
 from repro.serving import ServingEngine as JaxEngine
 from repro_torch.configs import get_config
 from repro_torch.kernels import ops
+from repro_torch.kernels import ref as tref
 from repro_torch.kernels.ssd_diag import ssd_diag
 from repro_torch.models import (
     decode_step, forward, init_cache, init_params, prefill,
@@ -51,6 +52,10 @@ def _ssd_inputs(seed, b, s, h, p, n):
     Bm = rng.standard_normal((b, s, n), np.float32) * 0.3
     Cm = rng.standard_normal((b, s, n), np.float32) * 0.3
     return [a.astype(np.float32) for a in (x, dt, A, Bm, Cm)]
+
+
+def _normal_f32(seed, *shape):
+    return np.random.default_rng(seed).standard_normal(shape, np.float32)
 
 
 def _tokens(seed, b, s, vocab):
@@ -85,22 +90,79 @@ def test_ssd_diag_plain_matches_pallas(shape):
     torch.testing.assert_close(out2, out, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("shape", [
+    (2, 64, 4, 8, 16, 16), (1, 256, 2, 64, 128, 128), (2, 128, 8, 32, 64, 64),
+    (2, 64, 4, 8, 16, 8), (1, 48, 5, 16, 32, 16), (1, 192, 3, 32, 16, 96),
+])
+def test_ssd_diag_tiled_plain_matches_pallas(shape):
+    """The kernel's decomposition on the CPU (C·Bᵀ once a chunk in 64-row
+    tiles, the causal tile pairs only, sequential cum, both products in
+    3xTF32) against the JAX package's Pallas kernel in interpret mode at
+    2e-5: at the shapes of its own test, at chunks 8 and 16, and at a chunk
+    of 96 (a ragged last q-tile) with 3 heads."""
+    b, s, h, p, n, chunk = shape
+    arrs = _ssd_inputs(4, b, s, h, p, n)
+    out = tref.ssd_diag_tiled_ref(*(torch.from_numpy(a) for a in arrs),
+                                 chunk=chunk)
+    pallas = pallas_ssd_diag(*(jnp.asarray(a) for a in arrs), chunk=chunk,
+                             interpret=True)
+    assert out.shape == (b, s, h, p) and out.dtype == torch.float32
+    _close(out, pallas, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("s", [256, 512])
+def test_ssd_diag_tiled_plain_at_mamba2_width(s):
+    """At mamba2-2.7b's width (80 heads of 64, state 128, chunk 256) the
+    tiled 3xTF32 form against the plain version within 1e-3 of the output's
+    RMS, the measure chip_smoke.py holds the kernel to across summation
+    orders: cum reaches about -80 there, so the plain version's cumsum,
+    which takes another order, moves the decay by a few float32 ulps of
+    80."""
+    arrs = [torch.from_numpy(a) for a in _ssd_inputs(5, 1, s, 80, 64, 128)]
+    out = tref.ssd_diag_tiled_ref(*arrs, chunk=256)
+    plain = tref.ssd_diag_ref(*arrs, chunk=256)
+    rms = plain.pow(2).mean().sqrt().item()
+    assert rms > 0
+    assert (out - plain).abs().max().item() <= 1e-3 * rms
+
+
+def test_tf32_round_keeps_ten_mantissa_bits():
+    """`tf32_round` clears the low 13 bits and rounds to the nearest (ties
+    away from zero); a 3xTF32 product keeps float32 accuracy where one TF32
+    product does not."""
+    x = torch.from_numpy(_normal_f32(6, 4096))
+    r = tref.tf32_round(x)
+    assert (r.view(torch.int32) & 0x1FFF).eq(0).all()
+    assert ((x - r).abs() <= x.abs() * 2.0 ** -11).all()
+    ties = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11)])
+    assert tref.tf32_round(ties).tolist() == [1.0 + 2.0 ** -10,
+                                             -(1.0 + 2.0 ** -10)]
+    a = torch.from_numpy(_normal_f32(7, 64, 128))
+    bm = torch.from_numpy(_normal_f32(8, 128, 64))
+    exact = a.double() @ bm.double()
+    scale = (a.double().abs() @ bm.double().abs()).max().item()
+    err3 = (tref.mm_3xtf32(a, bm).double() - exact).abs().max().item()
+    err1 = (tref.tf32_round(a) @ tref.tf32_round(bm) - exact).abs().max().item()
+    assert err3 <= 1e-6 * scale < err1
+
+
 def test_ssd_diag_rejects_a_chunk_that_does_not_divide():
     arrs = [torch.from_numpy(a) for a in _ssd_inputs(1, 1, 24, 2, 8, 16)]
     with pytest.raises(ValueError, match="must divide"):
         ssd_diag(*arrs, chunk=16)
+    with pytest.raises(ValueError, match="must divide"):
+        tref.ssd_diag_tiled_ref(*arrs, chunk=16)
 
 
 @pytest.mark.parametrize("use_pallas", [False, True])
-@pytest.mark.parametrize("split_diag", [False, True])
-@pytest.mark.parametrize("s,chunk", [(64, 16), (40, 16), (8, 8)])
-def test_ssd_chunked_matches_jax(use_pallas, split_diag, s, chunk):
-    """The port's chunked scan (diagonal block in the loop, or from one
-    `ssd_diag` call after it, as on the card) against the JAX scan with
+@pytest.mark.parametrize("s,chunk", [(64, 16), (40, 16), (8, 8), (128, 32),
+                                     (96, 32), (16, 16)])
+def test_ssd_chunked_matches_jax(use_pallas, s, chunk):
+    """The port's chunked scan (the diagonal block from one `ssd_diag` call
+    after the loop, on the CPU its plain version) against the JAX scan with
     and without its Pallas kernel; S = 40 pads the last chunk."""
     arrs = _ssd_inputs(2, 2, s, 4, 16, 8)
-    y, state = ssd_chunked(*(torch.from_numpy(a) for a in arrs), chunk,
-                           split_diag=split_diag)
+    y, state = ssd_chunked(*(torch.from_numpy(a) for a in arrs), chunk)
     jy, jstate = jax_ssd_chunked(*(jnp.asarray(a) for a in arrs), chunk,
                                  use_pallas=use_pallas)
     assert y.shape == (2, s, 4, 16) and state.shape == (2, 4, 16, 8)
