@@ -24,13 +24,15 @@ fails:
 4. engine: full-width gemma-2b (bf16, random weights from a seed) served
    through `repro_torch.launch.serve`, with the kernels' launch counts
    read around the run; then reduced float32 gemma-2b, gemma3-12b (decoding
-   past its rolling window) and mamba2 engines on the card against the same
+   past its rolling window), mamba2, deepseek-moe-16b, mixtral-8x7b (past
+   its rolling window) and minicpm3-4b engines on the card against the same
    engines on the CPU (plain versions): the same greedy tokens;
 5. mamba2: full-width mamba2-2.7b (bf16) served through the launcher with
    prompts up to the 256 bucket, one SSD-diagonal launch per layer and
    prefill; then a reduced float32 paged mamba2 engine evicting and
    resuming a request (its SSM state through the snapshot), card against
-   CPU and against the uninterrupted run;
+   CPU and against the uninterrupted run, and the same for reduced paged
+   gemma-2b and minicpm3-4b engines with a prefix hit;
 6. paged: full-width gemma-2b through the launcher with `--paged` and a pool
    that stalls admission; a request evicted mid-decode and resumed with
    the dense engine's tokens, and the paged kernel launched on every
@@ -39,9 +41,16 @@ fails:
    float32 paged engine with a prefix hit and an eviction, card against
    CPU;
 7. fleet: the `--policy perllm` edge-cloud fleet on the card, dense and
-   `--paged` (the paged one against the same fleet on the CPU).
+   `--paged` (the paged one against the same fleet on the CPU);
+8. moe / mla: full-width deepseek-moe-16b (dense dispatch), minicpm3-4b
+   (MLA: prefill through the flash kernel at head_dim 96, decode through
+   latent matrix products) dense and `--paged` with a prefix hit on the
+   latent pages, and mixtral-8x7b at full width with its depth cut to 4
+   layers (32 do not fit one card), bf16, each served through the
+   launcher's engine and freed before the next; the reduced float32 engines
+   of the three (and a paged minicpm3 one) are in phases 4 and 5.
 
-`--profile` also traces the warm gemma-2b and mamba2 engine runs with
+`--profile` also traces the warm engine runs of phases 4, 5 and 8 with
 torch.profiler (device time by kernel and the device's busy share of the
 wall time).
 
@@ -64,8 +73,9 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12,   # dense tensor-core rate
                   "float32": 67e12}     # float32 outside the tensor cores
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 REL_RMS = 0.05                     # max error / RMS of the plain output
-# the SSD kernel against the plain version on the CPU, which sums in another
-# order: max error / RMS read 3.3e-6 to 2.2e-4 on the H100, so 5x the most
+# the SSD kernel against the plain version on the CPU, summed in float64:
+# max error / RMS read 3.3e-6 to 2.2e-4 on the H100 against a float32 CPU
+# version (and once 1.16e-3), so 5x the usual most
 CPU_REL_RMS = 1e-3
 LIBRARY = {
     "flash_attention": "scaled_dot_product_attention (is_causal, or a "
@@ -357,13 +367,14 @@ def check_ssd(case, dev):
     # the plain version on the card takes its sums in the kernel's own
     # order (sequential fused multiply-adds) and agrees to the bit at
     # chunks >= 128; the CPU takes them in another, so hold the kernel
-    # against that too. Only an RMS criterion applies there: cum reaches
-    # about -80 at chunk 256, so cum_i - cum_j, a difference of two such
-    # sums, is off by ~1e-5 (a few float32 ulps of 80) and so is the decay's
-    # relative value: the two plain versions themselves differ by ~1e-4 on
-    # outputs of up to ~26
+    # against that too, computed in float64 from the same float32 inputs
+    # and then cast, so that the check reads the kernel's rounding alone
+    # and not the CPU float32 version's as well. Only an RMS criterion
+    # applies there: cum reaches about -80 at chunk 256, so cum_i - cum_j, a
+    # difference of two such sums, is off by ~1e-5 in float32 (a few ulps of
+    # 80) and so is the decay's relative value
     cpu_plain = ref.ssd_diag_ref(*(a.cpu() for a in (x, dt, A, Bm, Cm)),
-                                 chunk=chunk)
+                                 chunk=chunk, dtype=torch.float64)
     cpu_err, cpu_rel, _ = close(out.cpu(), cpu_plain, "float32")
     cpu_ok = cpu_rel <= CPU_REL_RMS
     q = min(chunk, s)
@@ -389,14 +400,15 @@ def check_ssd(case, dev):
 
 def tensor_core_selftest(dev) -> None:
     """The bf16 flash kernel's tensor-core path on one tile at each
-    head_dim, through its own loaders, swizzle, descriptors and wgmma
+    head_dim (48 and 96 zero-padded to 64 and 128 columns in shared
+    memory), through its own loaders, swizzle, descriptors and wgmma
     calls: S = Q·Kᵀ and O = bf16(S)·V against plain matrix products on the
     same tile. Fails the run on a mismatch."""
     import torch
     from repro_torch.kernels.flash_attention import tensor_core_selftest \
         as selftest
     gen = torch.Generator(device=dev).manual_seed(5)
-    for d in (64, 128, 256):
+    for d in (48, 64, 96, 128, 256):
         q, k, v = ((torch.randn(64, d, generator=gen, device=dev) * 0.5)
                    .to(torch.bfloat16) for _ in range(3))
         s, o = selftest(q, k, v)
@@ -433,6 +445,24 @@ FLASH_CASES = [
     (1, 32, 8, 2048, 2048, 128, 0, 0, "bfloat16", "long: llama3-8b heads"),
     (1, 16, 8, 4096, 4096, 256, 1024, 0, "bfloat16",
      "long: gemma3 window 1024"),
+    # MLA prefill attends at head_dim qk_nope + qk_rope: 96 for minicpm3-4b's
+    # 40 heads, 48 for the reduced engines' 2
+    (1, 40, 40, 32, 32, 96, 0, 0, "bfloat16",
+     "path: minicpm3-4b MLA prefill, bucket 32"),
+    (1, 40, 40, 32, 32, 96, 0, 0, "float32", "minicpm3-4b MLA heads, f32"),
+    (1, 40, 40, 2048, 2048, 96, 0, 0, "bfloat16", "long: minicpm3-4b MLA D96"),
+    (1, 40, 40, 2048, 2048, 96, 0, 0, "float32",
+     "long: minicpm3-4b MLA D96, f32"),
+    (1, 2, 2, 16, 16, 48, 0, 0, "float32", "path: reduced MLA D48, f32"),
+    (1, 2, 2, 16, 16, 48, 0, 0, "bfloat16", "reduced MLA D48"),
+    # deepseek-moe-16b: 16 heads on 16 kv-heads (G = 1), D 128; mixtral's 32
+    # on 8 with a window of 4096 that a 256-slot engine never reaches
+    (1, 16, 16, 32, 32, 128, 0, 0, "bfloat16",
+     "path: deepseek-moe-16b prefill, bucket 32"),
+    (1, 16, 16, 4096, 4096, 128, 0, 0, "bfloat16",
+     "long: deepseek-moe-16b heads S=4096"),
+    (1, 32, 8, 32, 32, 128, 4096, 0, "bfloat16",
+     "path: mixtral-8x7b prefill, bucket 32"),
 ]
 # (hq, hkv, s, d, valid_len per row, dtype, label)
 DECODE_CASES = [
@@ -446,6 +476,12 @@ DECODE_CASES = [
     (4, 4, 64, 64, [64, 64, 64, 64], "bfloat16", "MHA, full"),
     (8, 1, 4096, 256, [4096] * 32, "bfloat16", "long: gemma-2b B=32 S=4096"),
     (8, 1, 4096, 256, [4096] * 4, "bfloat16", "long: gemma-2b B=4 S=4096"),
+    (16, 16, 256, 128, [20, 27, 33, 41], "bfloat16",
+     "path: deepseek-moe-16b decode"),
+    (16, 16, 4096, 128, [4096] * 32, "bfloat16",
+     "long: deepseek-moe-16b B=32 S=4096"),
+    (32, 8, 256, 128, [20, 27, 33, 41], "bfloat16",
+     "path: mixtral-8x7b decode"),
 ]
 # (hq, hkv, d, page, n_pages, valid_len per row, dtype, label); shuffled
 # tables with a pad entry on page 0
@@ -485,7 +521,8 @@ SSD_CASES = [
 # local layers keep a rolling cache of 64 slots: its 70-token prompt is
 # prefilled into the last 64 slots and every request decodes past the window.
 # mamba2's prompts are no powers of two (the bucket padding runs through the
-# recurrence) and its 70-token prompt spans 8 chunks of 16.
+# recurrence) and its 70-token prompt spans 8 chunks of 16. mixtral's rolling
+# window is 64 slots too; minicpm3's MLA prefill runs flash at head_dim 48.
 SMALL_ENGINES = {
     "gemma-2b": (dict(n_layers=2, d_model=256, vocab_size=512), 64,
                  [3, 7, 11, 15, 19], 8),
@@ -493,7 +530,22 @@ SMALL_ENGINES = {
                    [45, 52, 60, 70], 24),
     "mamba2-2.7b": (dict(n_layers=2, d_model=256, vocab_size=512), 128,
                     [5, 13, 29, 70], 8),
+    "deepseek-moe-16b": (dict(n_layers=2, d_model=128, vocab_size=512), 64,
+                         [3, 7, 11, 15, 19], 8),
+    "mixtral-8x7b": (dict(n_layers=2, d_model=128, vocab_size=512), 128,
+                     [45, 52, 60, 70], 24),
+    "minicpm3-4b": (dict(n_layers=2, d_model=128, vocab_size=512), 64,
+                    [3, 7, 11, 15, 19], 8),
 }
+# full-width MoE and MLA engines: (arch, launcher flags beyond SERVE_ARGS',
+# layers kept). mixtral-8x7b's 32 layers are 93 GB in bf16, beyond one card:
+# it keeps 4 at full width.
+BIG_ENGINES = [
+    ("deepseek-moe-16b", [], None),
+    ("minicpm3-4b", [], None),
+    ("minicpm3-4b", ["--paged"], None),
+    ("mixtral-8x7b", [], 4),
+]
 
 
 def small_engine(arch: str, device: str, **kw):
@@ -542,9 +594,10 @@ def evict_resume(eng, prompts, new: int, steps: int = 3):
 
 def small_paged_run(arch: str, device: str):
     """A reduced float32 paged engine: the first request is evicted
-    mid-decode and resumed from its pages; for gemma-2b the second prompt
-    opens with the first one's two full blocks (a prefix hit). Returns
-    (tokens, uninterrupted dense tokens, prefix hits, prefills)."""
+    mid-decode and resumed from its pages; the second prompt opens with the
+    first one's two full blocks (a prefix hit where the cache is all pages,
+    not for mamba2). Returns (tokens, uninterrupted dense tokens, prefix
+    hits, prefills)."""
     bt = 16
     head = [(5 * j + 2) % 512 for j in range(2 * bt)]
     prompts = [head + [9, 8, 7, 6, 5], head + [1, 2, 3], [4, 5, 6, 7, 8, 9]]
@@ -679,13 +732,75 @@ def warm_engine_run(eng, prompts, profile: bool, new: int = 16) -> dict:
                       f"{e.self_device_time_total / e.count:.2f} us a launch")
         busy_us = sum(e.self_device_time_total for e in prof.key_averages()
                       if e.device_type == cuda)
+        # kernel launches the host made (cuBLAS's through cuLaunchKernelEx)
+        launches = sum(e.count for e in prof.key_averages()
+                       if e.key in ("cudaLaunchKernel", "cuLaunchKernelEx"))
         print(f"device busy {busy_us / 1e3:.1f} ms of {secs * 1e3:.1f} ms "
-              f"wall ({100 * busy_us / 1e6 / secs:.1f}%)")
+              f"wall ({100 * busy_us / 1e6 / secs:.1f}%); {launches} kernel "
+              f"launches from the host, {launches / steps:.0f} a step")
     toks = sum(len(r.generated) for r in eng.completed[n0:])
     if len(eng.completed) - n0 != len(prompts):
         fail("the warm engine run did not finish every request")
     return dict(tokens=toks, seconds=secs, steps=steps,
                 tok_per_s=toks / secs, ms_per_step=1e3 * secs / steps)
+
+
+def big_engine(arch, flags, n_layers, run_path, profile: bool, card: str):
+    """Phase 8: `arch` at full width (bf16, random weights from a seed)
+    served through the launcher's engine with SERVE_ARGS' 8 requests, its
+    depth cut to `n_layers` where given; checks the tokens, the kernels'
+    launch counts and the logits, then serves the same prompts warm.
+    Returns the engine."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import forward
+    args = serve.parser().parse_args(["--arch", arch] + SERVE_ARGS[2:]
+                                     + flags)
+    cfg = None if n_layers is None \
+        else dataclasses.replace(get_config(arch), n_layers=n_layers)
+    label = " ".join([arch] + flags)
+    launches, (eng, done, secs) = run_path(
+        label, lambda: serve.run_single(args, cfg=cfg))
+    cfg = eng.cfg
+    layers = cfg.n_layers
+    n_done, prefills = len(done), eng.n_prefills
+    toks = sum(len(r.generated) for r in done)
+    if n_done != 8 or any(len(r.generated) != 16 for r in done):
+        fail(f"{label}: the engine did not finish every request")
+    if any(not 0 <= t < cfg.vocab_size for r in done for t in r.generated):
+        fail(f"{label}: the engine produced tokens outside the vocabulary")
+    flash, dec = launches["flash_attention"], launches["decode_attention"]
+    if flash != prefills * layers:
+        fail(f"{label}: prefill did not run the flash kernel once per layer")
+    if cfg.mla is not None:
+        if dec:
+            fail(f"{label}: MLA decode ran the decode kernel")
+        dec_note = ("decode 0 (MLA decodes through latent matrix products, "
+                    "no decode kernel)")
+    else:
+        if dec <= 0 or dec % layers:
+            fail(f"{label}: decode did not run the decode kernel once per "
+                 f"layer a step")
+        dec_note = f"decode {dec} = {dec // layers} steps x {layers} layers"
+    probe = torch.tensor([done[0].prompt], device=DEVICE)
+    logits, _ = forward(eng.params, {"tokens": probe}, cfg=cfg, mode="train")
+    if logits.shape != (1, probe.shape[1], cfg.vocab_size) \
+            or not bool(torch.isfinite(logits).all()):
+        fail(f"{label}: logits are not finite or of the wrong shape")
+    del logits
+    warm = warm_engine_run(eng, [r.prompt for r in done], profile)
+    cut = (f", n_layers cut to {layers} of {get_config(arch).n_layers} "
+           f"(dataclasses.replace)" if n_layers is not None else "")
+    print(f"{label} engine (bf16, full width{cut}): {n_done} requests, "
+          f"{toks} tokens, cold {secs:.2f} s ({toks / secs:.1f} tok/s), "
+          f"warm {warm['seconds']:.3f} s ({warm['tok_per_s']:.1f} tok/s, "
+          f"{warm['steps']} steps, {warm['ms_per_step']:.2f} ms/step) on "
+          f"{card}; flash {flash} = {prefills} prefills x {layers} "
+          f"layers, {dec_note}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB", flush=True)
+    return eng
 
 
 def _to(tree, device):
@@ -832,9 +947,12 @@ def main(argv=None) -> None:
             fail(f"{arch}: greedy tokens differ: card {on_card} "
                  f"cpu {on_cpu}")
         want = ("ssd_diag",) if arch.startswith("mamba2") \
+            else ("flash_attention",) if arch.startswith("minicpm3") \
             else ("flash_attention", "decode_attention")
         if min(launches[k] for k in want) <= 0:
             fail(f"{arch}: the reduced engine did not run {want}")
+        if arch.startswith("minicpm3") and launches["decode_attention"]:
+            fail(f"{arch}: MLA decode ran the decode kernel")
 
     # 5. full-width mamba2-2.7b through the launcher, then a reduced paged
     # mamba2 engine evicting and resuming a request
@@ -863,7 +981,7 @@ def main(argv=None) -> None:
     del eng, done
     torch.cuda.empty_cache()
 
-    for arch in ("mamba2-2.7b", "gemma-2b"):
+    for arch in ("mamba2-2.7b", "gemma-2b", "minicpm3-4b"):
         label = f"reduced paged {arch}"
         card, card_ref, hits, prefills = run_path(
             label, lambda arch=arch: small_paged_run(arch, DEVICE))
@@ -879,7 +997,7 @@ def main(argv=None) -> None:
             fail(f"{label}: the resumed request's tokens differ from the "
                  f"uninterrupted run's")
         if prefills != 3 or hits != cpu_hits \
-                or hits != (1 if arch == "gemma-2b" else 0):
+                or hits != (0 if arch.startswith("mamba2") else 1):
             fail(f"{label}: {prefills} prefills and {hits} prefix hits")
 
     # 6. full-width paged gemma-2b: stalls through the launcher; eviction,
@@ -943,6 +1061,30 @@ def main(argv=None) -> None:
     if srv.stats["n_served"] != 12 \
             or per_server != cpu_srv.stats["per_server_served"]:
         fail("the paged fleet did not serve 12 of 12 as the CPU fleet does")
+
+    # 8. MoE and MLA at full width, each freed before the next
+    def run_path_out(name, fn):
+        out = run_path(name, fn)
+        return paths[name], out
+
+    for arch, flags, n_layers in BIG_ENGINES:
+        torch.cuda.reset_peak_memory_stats()
+        # the paged minicpm3 run is not traced: its trace repeats the dense
+        # one's, and a 62-layer trace takes minutes to read
+        eng = big_engine(arch, flags, n_layers, run_path_out,
+                         profile and not flags, name)
+        if eng.paged:
+            heng = run_path(f"paged prefix {arch}",
+                            lambda: full_prefix_hit(eng.params, eng.cfg))
+            print(f"paged prefix {arch}: {heng.n_prefix_hits} hit(s) on the "
+                  f"latent pages, {heng.prefix_tokens_reused} prompt tokens "
+                  f"reused, {heng.n_prefills} prefills; launches "
+                  f"{paths[f'paged prefix {arch}']}", flush=True)
+            if heng.n_prefix_hits < 1 or heng.prefix_tokens_reused < 32:
+                fail(f"the full-width paged {arch} engine took no prefix hit")
+            del heng
+        del eng
+        torch.cuda.empty_cache()
 
     # result
     path_rows = {}

@@ -35,6 +35,15 @@
 // only on tiles that cross a boundary, and the CTAs are launched longest
 // first. Rows past the end load zeros and are not stored; the output goes
 // out through shared memory as 16-byte stores, through its own strides.
+// Head dims 48 and 96 (MLA's qk_nope + qk_rope, reduced and at full width)
+// are 96 and 192 bytes a row, no whole number of 128-byte swizzle atoms:
+// the tiles are padded to the next multiple of 64 columns inside shared
+// memory (DP = 64 and 128), the missing columns filled with zeros by
+// cp.async with a zero source size, so nothing is padded in device memory.
+// S = Q.K^T runs only the k-steps of the D real columns; O += P.V runs at
+// N = DP, whose padded columns are products with the zero V columns, and
+// they are never stored. The padding costs (DP - D) / D more P.V work and
+// shared memory, a third at D = 48 and 96.
 // Accuracy: for a warpgroup whose rows see at most kExactPKeys keys (where
 // the outputs are largest), P goes in as three bf16 terms hi + mid + lo and
 // S is summed a 64-column block at a time in f32, which keeps the output
@@ -231,14 +240,22 @@ constexpr float kLog2e = 1.4426950408889634f;
 // more keys the outputs are small and so are their ulps.
 constexpr int kExactPKeys = 512;
 
+// The tiles' width in shared memory: D padded to whole 64-column (128-byte)
+// swizzle atoms.
+template <int D>
+__host__ __device__ constexpr int padded_dim() {
+  return (D + 63) / 64 * 64;
+}
+
 // WG consumer warpgroups share each K/V tile: two where the grid fills the
 // card anyway (half the K/V traffic per row), one where it would not.
 template <int D, int WG>
 struct Cfg {
+  static constexpr int kDP = padded_dim<D>();
   static constexpr int kRows = kBM * WG;               // packed rows a CTA
   static constexpr int kThreads = 128 * WG;
-  static constexpr int kQ = kRows * D * 2;              // the CTA's Q rows
-  static constexpr int kTile = kBK * D * 2;             // one K or V tile
+  static constexpr int kQ = kRows * kDP * 2;            // the CTA's Q rows
+  static constexpr int kTile = kBK * kDP * 2;           // one K or V tile
   static constexpr int kBytes = kQ + kStages * 2 * kTile + 1024;  // + alignment
 };
 
@@ -248,29 +265,31 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// Rows [row0, row0 + kBK) of a (seq, D) operand into a swizzled tile; rows
-// at or past `n` are zero-filled.
+// Rows [row0, row0 + kBK) of a (seq, D) operand into a swizzled tile of
+// padded_dim<D>() columns; rows at or past `n`, and the padding columns, are
+// zero-filled.
 template <int D, int NT>
 __device__ __forceinline__ void load_kv_tile(uint32_t dst, const bf16* src, int64_t stride,
                                              int row0, int n, int tid) {
-  constexpr int kChunks = D / 8;
+  constexpr int kChunks = padded_dim<D>() / 8;
 #pragma unroll
   for (int k = 0; k < kBK * kChunks / NT; ++k) {
     const int i = tid + k * NT;
     const int r = i / kChunks, c = i % kChunks;
-    const bool in = row0 + r < n;
+    const bool in = row0 + r < n && c < D / 8;
     const bf16* p = in ? src + (row0 + r) * stride + c * 8 : src;
     cp_async16(dst + sw128_offset(r, c, kBK), p, in);
   }
 }
 
-// The CTA's packed Q rows [r0, r0 + ROWS) into a swizzled tile; rows at or
-// past `rows_total` are zero-filled. Row r is q-head r / Sq, query r % Sq.
+// The CTA's packed Q rows [r0, r0 + ROWS) into a swizzled tile of
+// padded_dim<D>() columns; rows at or past `rows_total`, and the padding
+// columns, are zero-filled. Row r is q-head r / Sq, query r % Sq.
 template <int D, int ROWS, int NT>
 __device__ __forceinline__ void load_q_tile(uint32_t dst, const bf16* qb, Strides qs,
                                             const tiles::FastDiv& sq, int r0, int rows_total,
                                             int tid) {
-  constexpr int kChunks = D / 8;
+  constexpr int kChunks = padded_dim<D>() / 8;
   constexpr int kStep = NT / kChunks;  // rows a pass
   const int c = tid % kChunks;
 #pragma unroll
@@ -278,7 +297,7 @@ __device__ __forceinline__ void load_q_tile(uint32_t dst, const bf16* qb, Stride
     const int r = tid / kChunks + k * kStep;
     const int pr = r0 + r;
     const int head = sq(pr);
-    const bool in = pr < rows_total;
+    const bool in = pr < rows_total && c < D / 8;
     const bf16* p = in ? qb + head * qs.h + (pr - head * sq.d) * qs.s + c * 8 : qb;
     cp_async16(dst + sw128_offset(r, c, ROWS), p, in);
   }
@@ -296,8 +315,9 @@ __device__ __forceinline__ uint64_t v_desc(uint32_t v_s, int kk) {
   return sw128_desc(v_s + kk * 16 * 128, kBK * 128, 1024);
 }
 
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[4], uint64_t b);
+// N = DP, the padded width.
+template <int DP>
+__device__ __forceinline__ void wgmma_pv(float (&o)[DP / 2], const uint32_t (&a)[4], uint64_t b);
 template <>
 __device__ __forceinline__ void wgmma_pv<64>(float (&o)[32], const uint32_t (&a)[4], uint64_t b) {
   wgmma_rs_n64(o, a, b);
@@ -326,22 +346,24 @@ __device__ __forceinline__ void qk_steps(float (&s)[32], uint32_t q_s, uint32_t 
   fence_regs(s);
 }
 
-// S = Q.K^T: in one accumulator, or (`blocks`) a 64-column block of D at a
-// time, the blocks summed in f32 with round-to-nearest.
+// S = Q.K^T over the D / 16 k-steps of the real columns (the padding
+// columns are never read): in one accumulator, or (`blocks`) a 64-column
+// block of D at a time, the blocks summed in f32 with round-to-nearest.
 template <int D, int ROWS>
 __device__ __forceinline__ void qk(float (&s)[32], uint32_t q_s, uint32_t k_s, int wg,
                                    bool blocks) {
-  if (!blocks || D == 64) {
-    qk_steps<ROWS>(s, q_s, k_s, wg, 0, D / 16, false);
+  constexpr int kSteps = D / 16;
+  if (!blocks || kSteps <= 4) {
+    qk_steps<ROWS>(s, q_s, k_s, wg, 0, kSteps, false);
     return;
   }
   qk_steps<ROWS>(s, q_s, k_s, wg, 0, 4, false);
 #pragma unroll
-  for (int c = 1; c < D / 64; ++c) {
+  for (int c = 1; c < (kSteps + 3) / 4; ++c) {
     float t[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) t[i] = 0.f;
-    qk_steps<ROWS>(t, q_s, k_s, wg, 4 * c, 4 * c + 4, false);
+    qk_steps<ROWS>(t, q_s, k_s, wg, 4 * c, min(4 * c + 4, kSteps), false);
 #pragma unroll
     for (int i = 0; i < 32; ++i) s[i] += t[i];
   }
@@ -364,13 +386,13 @@ __device__ __forceinline__ void p_split(float (&p)[32], uint32_t (&a)[4][4]) {
     }
 }
 
-// O += P.V for one V tile.
-template <int D>
-__device__ __forceinline__ void pv(float (&o)[D / 2], const uint32_t (&a)[4][4], uint32_t v_s) {
+// O += P.V for one V tile, at the padded width DP.
+template <int DP>
+__device__ __forceinline__ void pv(float (&o)[DP / 2], const uint32_t (&a)[4][4], uint32_t v_s) {
   fence_regs(o);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_pv<D>(o, a[kk], v_desc(v_s, kk));
+  for (int kk = 0; kk < 4; ++kk) wgmma_pv<DP>(o, a[kk], v_desc(v_s, kk));
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(o);
@@ -387,6 +409,7 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 Strides vs, Strides os, int group, tiles::FastDiv sq, int sk, int causal,
                 int window, int q_offset, float scale_log2, int n_tiles) {
   using L = Cfg<D, WG>;
+  constexpr int kDP = L::kDP;
   constexpr int kRows = L::kRows;
   constexpr int kThreads = L::kThreads;
   extern __shared__ __align__(16) unsigned char tc_smem[];
@@ -428,9 +451,9 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     qpos[i] = (pr < rows_total ? pr - sq(pr) * sq.d : 0) + q_offset;
   }
 
-  float acc[D / 2];
+  float acc[kDP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < kDP / 2; ++i) acc[i] = 0.f;
   float m_run[2] = {-INFINITY, -INFINITY};  // log2 units
   float l_run[2] = {0.f, 0.f};
   bool first = true;  // no tile processed yet (warpgroup-uniform)
@@ -515,7 +538,7 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         }
       if (!first) {  // before the first tile acc is zero
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j)
+        for (int j = 0; j < kDP / 8; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[4 * j + e] *= alpha[e >> 1];
       }
@@ -533,7 +556,7 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const int terms = exact ? 3 : 1;
       for (int term = 0; term < terms; ++term) {
         p_split(s, a);
-        pv<D>(acc, a, k_s + L::kTile);
+        pv<kDP>(acc, a, k_s + L::kTile);
       }
     }
     __syncthreads();  // the stage is consumed before it is refilled
@@ -544,7 +567,8 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();
   }
   // the quad's partial row sums; the rows go through shared memory (this
-  // warpgroup's Q rows, no longer read) and out as 16-byte stores
+  // warpgroup's Q rows, no longer read) and out as 16-byte stores, the
+  // padding columns left behind
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 1);
@@ -555,14 +579,14 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int row = wg * kBM + warp * 16 + lane / 4 + 8 * i;
     const float inv = 1.f / fmaxf(l_run[i], 1e-30f);
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < D / 8; ++j) {  // the real columns' 8-column groups
       const uint32_t val = pack_bf16(acc[4 * j + 2 * i] * inv, acc[4 * j + 2 * i + 1] * inv);
       const uint32_t dst = q_s + sw128_offset(row, j, kRows) + 4 * (lane % 4);
       asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(dst), "r"(val) : "memory");
     }
   }
   bar_sync_wg(wg);
-  constexpr int kChunks = D / 8;
+  constexpr int kChunks = kDP / 8;
   constexpr int kStep = 128 / kChunks;  // rows a pass
   const int c = t % kChunks;
   bf16* ob = o + b * os.b + hk * group * os.h + c * 8;
@@ -570,7 +594,7 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int k = 0; k < kBM / kStep; ++k) {
     const int r = t / kChunks + k * kStep;
     const int pr = w0 + r;
-    if (pr >= rows_total) break;
+    if (pr >= rows_total || c >= D / 8) break;
     const int head = sq(pr);
     uint4 val;
     asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
@@ -582,8 +606,9 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // One warpgroup, one tile, through the kernel's own loaders, descriptors
 // and wgmma calls: S = Q.K^T (64 x 64) and O = bf16(S).V (64 x D), with
-// q, k, v contiguous (64, D) bf16 and s, o float32. It pins the swizzle and
-// the descriptors against a plain matrix product on the card.
+// q, k, v contiguous (64, D) bf16 and s, o float32. It pins the swizzle, the
+// descriptors and the column padding of D = 48 and 96 against a plain
+// matrix product on the card.
 template <int D>
 __global__ void __launch_bounds__(128)
 flash_tc_selftest_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -612,12 +637,12 @@ flash_tc_selftest_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int e = 0; e < 4; ++e)
       s_out[(warp * 16 + lane / 4 + 8 * (e >> 1)) * kBK + 8 * j + 2 * (lane % 4) + (e & 1)] =
           s[4 * j + e];
-  float acc[D / 2];
+  float acc[L::kDP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < L::kDP / 2; ++i) acc[i] = 0.f;
   uint32_t a[4][4];
   p_split(s, a);
-  pv<D>(acc, a, v_s);
+  pv<L::kDP>(acc, a, v_s);
 #pragma unroll
   for (int j = 0; j < D / 8; ++j)
 #pragma unroll
@@ -692,8 +717,12 @@ cudaError_t dispatch_f32(int d, const void* q, const void* k, const void* v, voi
                          const Strides* st, int b, int hq, int hkv, int sq, int sk, int causal,
                          int window, int q_offset, float scale, cudaStream_t stream) {
   switch (d) {
+    case 48:
+      return launch_flash<float, 48>(q, k, v, o, st, b, hq, hkv, sq, sk, causal, window, q_offset, scale, stream);
     case 64:
       return launch_flash<float, 64>(q, k, v, o, st, b, hq, hkv, sq, sk, causal, window, q_offset, scale, stream);
+    case 96:
+      return launch_flash<float, 96>(q, k, v, o, st, b, hq, hkv, sq, sk, causal, window, q_offset, scale, stream);
     case 128:
       return launch_flash<float, 128>(q, k, v, o, st, b, hq, hkv, sq, sk, causal, window, q_offset, scale, stream);
     case 256:
@@ -707,8 +736,12 @@ cudaError_t dispatch_bf16(int d, const void* q, const void* k, const void* v, vo
                           const Strides* st, int b, int hq, int hkv, int sq, int sk, int causal,
                           int window, int q_offset, float scale, cudaStream_t stream) {
   switch (d) {
+    case 48:
+      return tc::launch<48>(q, k, v, o, st, b, hq, hkv, sq, sk, causal, window, q_offset, scale, stream);
     case 64:
       return tc::launch<64>(q, k, v, o, st, b, hq, hkv, sq, sk, causal, window, q_offset, scale, stream);
+    case 96:
+      return tc::launch<96>(q, k, v, o, st, b, hq, hkv, sq, sk, causal, window, q_offset, scale, stream);
     case 128:
       return tc::launch<128>(q, k, v, o, st, b, hq, hkv, sq, sk, causal, window, q_offset, scale, stream);
     case 256:
@@ -752,7 +785,9 @@ extern "C" int repro_flash_selftest(const void* q, const void* k, const void* v,
   float* sf = static_cast<float*>(s);
   float* of = static_cast<float*>(o);
   switch (d) {
+    case 48: return (int)repro::tc::selftest<48>(q, k, v, sf, of, st);
     case 64: return (int)repro::tc::selftest<64>(q, k, v, sf, of, st);
+    case 96: return (int)repro::tc::selftest<96>(q, k, v, sf, of, st);
     case 128: return (int)repro::tc::selftest<128>(q, k, v, sf, of, st);
     case 256: return (int)repro::tc::selftest<256>(q, k, v, sf, of, st);
     default: return (int)cudaErrorInvalidValue;

@@ -13,10 +13,11 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention import (DTYPES, HEAD_DIMS,
-                                                 check_aligned, check_operand)
+from repro_torch.kernels.flash_attention import (DTYPES, check_aligned,
+                                                 check_operand)
 from repro_torch.kernels.ref import decode_attention_ref, split_plan
 
+HEAD_DIMS = (64, 128, 256)   # the dense entry's instantiations
 MAX_GROUP = 8     # q-heads per kv-head that one CTA holds in registers
 
 

@@ -14,7 +14,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flash_attention_ref
 
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (48, 64, 96, 128, 256)   # 48 and 96: MLA's qk_nope + qk_rope
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -50,8 +50,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     """q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D) -> (B, Hq, Sq, D) in q.dtype.
 
     Any strides whose last axis is contiguous are taken as they are, so
-    views of (B, S, H, D) model tensors need no copy. D must be 64, 128 or
-    256 and Hq a multiple of Hkv. In bfloat16 the kernel copies 16-byte
+    views of (B, S, H, D) model tensors need no copy. D must be 48, 64, 96,
+    128 or 256 (the bf16 kernel pads 48 and 96 to whole 64-column tiles in
+    shared memory, never in device memory) and Hq a multiple of Hkv. In bfloat16 the kernel copies 16-byte
     chunks, so pointers and strides must be 16-byte aligned.
     """
     if q.device.type == "cpu":

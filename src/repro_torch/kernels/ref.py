@@ -177,33 +177,36 @@ def paged_attention_split_ref(q, k_pages, v_pages, block_tables, valid_len,
     return combine_partials_ref(m, l, acc).to(q.dtype)
 
 
-def ssd_diag_ref(x, dt, A, Bm, Cm, *, chunk: int = 256):
+def ssd_diag_ref(x, dt, A, Bm, Cm, *, chunk: int = 256,
+                 dtype=torch.float32):
     """The Mamba-2 SSD diagonal block, per chunk of the sequence:
     ``Y[i] = sum_{j<=i} (C_i . B_j) exp(cum_i - cum_j) dt_j x_j`` with
     ``cum = cumsum(dt * A)`` inside the chunk.
 
     x: (B, S, H, P); dt: (B, S, H) post-softplus; A: (H,) negative;
-    Bm, Cm: (B, S, N). Returns (B, S, H, P) float32.
+    Bm, Cm: (B, S, N). The sums are taken in `dtype` (float64 gives a
+    reference for the float32 versions' own rounding). Returns (B, S, H, P)
+    float32.
     """
     b, s, h, p = x.shape
     chunk = min(chunk, s)
     if s % chunk:
         raise ValueError(f"chunk {chunk} must divide the sequence {s}")
     nc = s // chunk
-    xr = x.reshape(b, nc, chunk, h, p).float()
-    dtr = dt.reshape(b, nc, chunk, h).float()
-    Br = Bm.reshape(b, nc, chunk, -1).float()
-    Cr = Cm.reshape(b, nc, chunk, -1).float()
-    cum = torch.cumsum(dtr * A.float(), dim=2)
+    xr = x.reshape(b, nc, chunk, h, p).to(dtype)
+    dtr = dt.reshape(b, nc, chunk, h).to(dtype)
+    Br = Bm.reshape(b, nc, chunk, -1).to(dtype)
+    Cr = Cm.reshape(b, nc, chunk, -1).to(dtype)
+    cum = torch.cumsum(dtr * A.to(dtype), dim=2)
     dtx = dtr[..., None] * xr
     scores = torch.einsum("bcqn,bckn->bcqk", Cr, Br)
     decay = cum[:, :, :, None, :] - cum[:, :, None, :, :]
     idx = torch.arange(chunk, device=x.device)
     mask = idx[:, None] >= idx[None, :]
     lmat = torch.where(mask[None, None, :, :, None], torch.exp(decay),
-                       torch.zeros((), device=x.device))
+                       torch.zeros((), dtype=dtype, device=x.device))
     y = torch.einsum("bcqk,bcqkh,bckhp->bcqhp", scores, lmat, dtx)
-    return y.reshape(b, s, h, p)
+    return y.reshape(b, s, h, p).float()
 
 
 # the SSD kernel's q- and k-tiles: rows of a tile of C·Bᵀ

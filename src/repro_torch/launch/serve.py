@@ -17,8 +17,11 @@ the named policy from the registry (see
 allocates block-pool pages (and stalls on exhaustion) instead of relying on
 the dense `max_batch x max_seq` reservation; evicted requests keep their
 prefill. `--arch mamba2-2.7b` serves the Mamba-2 family (its prefill runs
-the SSD-diagonal kernel on the card); `--prompt-len LO HI` draws the prompt
-lengths from [LO, HI).
+the SSD-diagonal kernel on the card), `--arch deepseek-moe-16b` (and
+`mixtral-8x7b --reduced`, whose 32 layers do not fit one card) the MoE
+family and `--arch minicpm3-4b` the MLA family (its prefill runs the flash
+kernel at head_dim 96); `--prompt-len LO HI` draws the prompt lengths from
+[LO, HI).
 """
 from __future__ import annotations
 
@@ -81,13 +84,15 @@ def run_fleet(args):
     return srv
 
 
-def run_single(args):
-    """One engine at the width of `--arch`. Returns (engine, completed
-    requests, seconds)."""
+def run_single(args, cfg=None):
+    """One engine at the width of `--arch`, or of `cfg` where one is given
+    (a config the flags cannot name, such as a model with its depth cut to
+    fit one card). Returns (engine, completed requests, seconds)."""
     device = resolve_device(args.device)
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = cfg.reduced()
+    if cfg is None:
+        cfg = get_config(args.arch)
+        if args.reduced:
+            cfg = cfg.reduced()
     params = init_params(cfg, device=device)
     eng = ServingEngine(cfg, params, max_batch=args.max_batch,
                         max_seq=args.max_seq, device=device,

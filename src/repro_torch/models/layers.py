@@ -1,11 +1,13 @@
-"""Transformer layers of the dense family: norms, RoPE, gated MLPs, attention.
+"""Transformer layers: norms, RoPE, gated MLPs, attention and MLA.
 
 Each is a plain function of (parameter dict, tensors); ``init_*`` builds the
 matching dict from a ``torch.Generator``. Attention covers GQA/MQA, sliding
 windows and rolling KV caches (keys are cached after rotation, so slot
-order does not matter). Prefill attention runs on the flash kernel and
-decode on the decode kernel when the tensors lie on the card. MLA, M-RoPE,
-cross attention and context-parallel decode are not ported yet.
+order does not matter); MLA keeps the compressed latent cache. Prefill
+attention (MLA's included) runs on the flash kernel and decode on the
+decode kernel when the tensors lie on the card; MLA decode is latent matrix
+products, as in the JAX package. M-RoPE, cross attention and
+context-parallel decode are not ported yet.
 """
 from __future__ import annotations
 
@@ -216,4 +218,114 @@ def attention_layer(p, x, *, cfg: ModelConfig, mode: str, cache=None,
         raise ValueError(mode)
 
     out = out.reshape(b, s, ad.n_heads * ad.head_dim) @ p["wo"]
+    return out, new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLA: Multi-head Latent Attention (MiniCPM3 / DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+
+def init_mla(gen, cfg: ModelConfig, device=None):
+    m = cfg.mla
+    d = cfg.d_model
+    dt = torch_dtype(cfg.dtype)
+    qk_hd = m.qk_nope_head_dim + m.qk_rope_head_dim
+    h = cfg.n_heads
+    return {
+        "wq_a": dense_init(gen, (d, m.q_lora_rank), dtype=dt, device=device),
+        "wq_b": dense_init(gen, (m.q_lora_rank, h * qk_hd), dtype=dt,
+                           device=device),
+        "wkv_a": dense_init(gen, (d, m.kv_lora_rank + m.qk_rope_head_dim),
+                            dtype=dt, device=device),
+        "wkv_b": dense_init(gen, (m.kv_lora_rank,
+                                  h * (m.qk_nope_head_dim + m.v_head_dim)),
+                            dtype=dt, device=device),
+        "wo": dense_init(gen, (h * m.v_head_dim, d), dtype=dt, device=device),
+        "q_norm": init_rmsnorm(m.q_lora_rank, device),
+        "kv_norm": init_rmsnorm(m.kv_lora_rank, device),
+    }
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
+                   device=None):
+    """The latent cache: ``ckv`` (B, S, kv_lora_rank) and ``krope`` (B, S,
+    qk_rope_head_dim), batch-first as the other caches."""
+    m = cfg.mla
+    dt = dtype or torch_dtype(cfg.dtype)
+    return {"ckv": torch.zeros((batch, max_seq, m.kv_lora_rank), dtype=dt,
+                               device=device),
+            "krope": torch.zeros((batch, max_seq, m.qk_rope_head_dim),
+                                 dtype=dt, device=device)}
+
+
+def mla_layer(p, x, *, cfg: ModelConfig, mode: str, cache=None, pos=None,
+              positions=None):
+    """MLA with the compressed latent cache (per token ``kv_lora_rank +
+    qk_rope_head_dim`` values instead of ``2 * H * head_dim``).
+
+    Prefill folds the shared rope key into every head, so attention is the
+    flash kernel's at head_dim ``qk_nope + qk_rope`` with V zero-padded to
+    that width (as the JAX package pads it). Decode is the weight-absorbed
+    latent form in float32: the cache is never expanded to per-head K/V.
+    The cache tensors are updated in place. Returns (out, cache')."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    dn, dr, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    qk_hd = dn + dr
+    scale = 1.0 / math.sqrt(qk_hd)
+
+    if positions is None:
+        if mode == "decode":
+            positions = torch.as_tensor(pos, device=x.device).reshape(-1, 1)
+            positions = positions.expand(b, s)
+        else:
+            positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+
+    q = (rmsnorm(p["q_norm"], x @ p["wq_a"]) @ p["wq_b"]).view(b, s, h, qk_hd)
+    q_nope, q_rope = q.split([dn, dr], dim=-1)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+
+    ckv, krope = (x @ p["wkv_a"]).split([m.kv_lora_rank, dr], dim=-1)
+    ckv = rmsnorm(p["kv_norm"], ckv)
+    krope = apply_rope(krope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+
+    new_cache = None
+    if mode == "decode":
+        if s != 1:
+            raise ValueError(f"decode takes one token per row, got {s}")
+        update_cache_seq(cache["ckv"], ckv, pos)
+        update_cache_seq(cache["krope"], krope, pos)
+        new_cache = cache
+        # weight-absorbed decode: attend in the r-dim latent space
+        wkv = p["wkv_b"].view(m.kv_lora_rank, h, dn + dv).float()
+        f32 = torch.float32
+        q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope.float(), wkv[..., :dn])
+        ckv_f = cache["ckv"].to(f32)
+        logits = (torch.einsum("bqhr,bkr->bhqk", q_lat, ckv_f)
+                  + torch.einsum("bqhd,bkd->bhqk", q_rope.float(),
+                                 cache["krope"].to(f32))) * scale
+        t = ckv_f.shape[1]
+        posv = torch.as_tensor(pos, device=x.device).reshape(-1, 1)
+        valid = (torch.arange(t, device=x.device)[None, :] <= posv)
+        logits = logits.masked_fill(~valid[:, None, None, :], -1e30)
+        probs = torch.softmax(logits, dim=-1)
+        out_lat = torch.einsum("bhqk,bkr->bqhr", probs, ckv_f)
+        out = torch.einsum("bqhr,rhd->bqhd", out_lat,
+                           wkv[..., dn:]).to(x.dtype)
+    else:
+        if mode == "prefill" and cache is not None:
+            cache["ckv"][:, :s] = ckv
+            cache["krope"][:, :s] = krope
+            new_cache = cache
+        kv_up = (ckv @ p["wkv_b"]).view(b, s, h, dn + dv)
+        k_nope, v = kv_up.split([dn, dv], dim=-1)
+        q_full = torch.cat([q_nope, q_rope], dim=-1)
+        k_full = torch.cat([k_nope, krope[:, :, None, :].expand(b, s, h, dr)],
+                           dim=-1)
+        vp = F.pad(v, (0, qk_hd - dv))
+        out = attn_op(q_full, k_full, vp, causal=True, window=0,
+                      scale=scale)[..., :dv]
+    out = out.reshape(b, s, h * dv) @ p["wo"]
     return out, new_cache

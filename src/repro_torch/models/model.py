@@ -71,15 +71,19 @@ def lm_head(params, x, cfg: ModelConfig):
 
 
 def forward(params, batch, *, cfg: ModelConfig, mode: str = "train",
-            cache=None, pos=None):
+            cache=None, pos=None, moe_dispatch: str = "dense"):
     """batch: {"tokens": (B, S) integer [, "positions": (B, S)]}.
 
     Returns (logits (B, S, V) float32, cache'). The cache is updated in
-    place."""
+    place. ``moe_dispatch`` picks the MoE layers' dispatch, "dense" or
+    "capacity", as the JAX package's ``ParallelContext.moe_dispatch``. The
+    MoE load-balance loss is left out until training is ported (serving
+    ignores it, as the JAX engine does)."""
     x = embed_tokens(params, batch["tokens"], cfg)
-    x, new_cache = T.run_stack(params["layers"], x, cfg=cfg, mode=mode,
-                               cache=cache, pos=pos,
-                               positions=batch.get("positions"))
+    x, new_cache, _ = T.run_stack(params["layers"], x, cfg=cfg, mode=mode,
+                                  cache=cache, pos=pos,
+                                  positions=batch.get("positions"),
+                                  moe_dispatch=moe_dispatch)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return lm_head(params, x, cfg), new_cache
 
@@ -87,8 +91,9 @@ def forward(params, batch, *, cfg: ModelConfig, mode: str = "train",
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
                device=None):
     """One cache dict per layer: attention {"k", "v"} of (batch, slots, Hkv,
-    D), Mamba-2 {"state", "conv"}. ``device="meta"`` gives the shapes alone
-    (the paged cache probes them)."""
+    D), MLA {"ckv", "krope"} of (batch, slots, rank), Mamba-2 {"state",
+    "conv"}. ``device="meta"`` gives the shapes alone (the paged cache
+    probes them)."""
     return T.init_stack_cache(cfg, batch, max_seq, dtype=dtype,
                               device=resolve_device(device))
 
@@ -102,11 +107,12 @@ def prefill(params, batch, cache, *, cfg: ModelConfig):
     return logits[:, -1], new_cache
 
 
-def decode_step(params, tokens, cache, pos, *, cfg: ModelConfig):
+def decode_step(params, tokens, cache, pos, *, cfg: ModelConfig,
+                moe_dispatch: str = "dense"):
     """One decode step. tokens: (B, 1); pos: int or (B,) current positions.
 
     Returns (logits (B, V), cache')."""
     logits, new_cache = forward(params, {"tokens": tokens}, cfg=cfg,
-                                mode="decode", cache=cache, pos=pos)
+                                mode="decode", cache=cache, pos=pos,
+                                moe_dispatch=moe_dispatch)
     return logits[:, -1], new_cache
-

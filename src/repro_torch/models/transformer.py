@@ -1,33 +1,40 @@
-"""Block-program transformer assembly (dense and Mamba-2 families).
+"""Block-program transformer assembly (dense, MoE, MLA and Mamba-2 families).
 
 An architecture is a *block program*: optional leading ``head`` layers, a
 repeating ``superblock`` and an optional ``tail`` (e.g. gemma3's 5 local :
-1 global superblock, gemma3-27b's 62 = 10*6 + 2 layers, mamba2's single ssm
-layer 64 times). The JAX package scans stacked superblock parameters; the
-port keeps one parameter dict and one cache dict per layer, in execution
-order, and runs them in a Python loop. Cache leaves are batch-first:
-attention (B, S, Hkv, D) ``k``/``v``, ssm (B, H, P, N) ``state`` and
-(B, d_conv - 1, C) ``conv``.
+1 global superblock, gemma3-27b's 62 = 10*6 + 2 layers, deepseek-moe's one
+dense-MLP head layer before 27 MoE layers, mamba2's single ssm layer 64
+times). The JAX package scans stacked superblock parameters; the port keeps
+one parameter dict and one cache dict per layer, in execution order, and
+runs them in a Python loop. Cache leaves are batch-first: attention (B, S,
+Hkv, D) ``k``/``v``, MLA (B, S, kv_lora_rank) ``ckv`` and (B, S,
+qk_rope_head_dim) ``krope``, ssm (B, H, P, N) ``state`` and (B, d_conv - 1,
+C) ``conv``.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import List, Tuple
 
+import torch
+
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 
-NOT_PORTED = ("is not ported yet (ROADMAP.md §1, queue item 2: the other "
-              "model families)")
+NOT_PORTED = ("is not ported yet (ROADMAP.md §1: the RG-LRU, M-RoPE and "
+              "encoder-decoder families)")
 
 
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
-    """An attention (``attn``) or Mamba-2 (``ssm``) layer; the JAX
-    package's other kinds (mla, rec, moe, cross) are not ported yet."""
-    kind: str = "attn"        # attn | ssm
+    """An attention (``attn``), latent-attention (``mla``) or Mamba-2
+    (``ssm``) layer, with a routed-expert MLP where ``moe``; the JAX
+    package's other kinds (rec, cross) are not ported yet."""
+    kind: str = "attn"        # attn | mla | ssm
     window: int = 0           # 0 -> full attention
+    moe: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,22 +56,27 @@ class BlockProgram:
 
 
 def block_program(cfg: ModelConfig) -> BlockProgram:
-    """The block program of a dense or Mamba-2 model, as the JAX package
-    builds it."""
+    """The block program of a dense, MoE, MLA or Mamba-2 model, as the JAX
+    package builds it."""
     if cfg.family == "ssm":
         return BlockProgram((), (LayerSpec("ssm"),), cfg.n_layers, ())
-    if cfg.rglru is not None or cfg.mla is not None \
-            or cfg.n_experts > 0 or cfg.enc_dec or cfg.mrope:
+    if cfg.rglru is not None or cfg.enc_dec or cfg.mrope:
         raise NotImplementedError(f"{cfg.arch_id} ({cfg.family}) {NOT_PORTED}")
+    kind = "mla" if cfg.mla is not None else "attn"
     if cfg.local_global_pattern != (0, 0):
         nl, ng = cfg.local_global_pattern
         per = nl + ng
-        sb = tuple([LayerSpec(window=cfg.sliding_window)] * nl
-                   + [LayerSpec()] * ng)
+        sb = tuple([LayerSpec(kind, window=cfg.sliding_window)] * nl
+                   + [LayerSpec(kind)] * ng)
         n_sb = cfg.n_layers // per
         tail = sb[: cfg.n_layers - n_sb * per]
         return BlockProgram((), sb, n_sb, tail)
-    spec = LayerSpec(window=cfg.sliding_window)
+    moe = cfg.n_experts > 0
+    spec = LayerSpec(kind, window=cfg.sliding_window, moe=moe)
+    if moe and cfg.n_shared_experts:
+        # DeepSeekMoE: the first layer keeps a dense MLP
+        head = (LayerSpec(kind, window=cfg.sliding_window),)
+        return BlockProgram(head, (spec,), cfg.n_layers - 1, ())
     return BlockProgram((), (spec,), cfg.n_layers, ())
 
 
@@ -79,20 +91,29 @@ def init_layer(gen, spec: LayerSpec, cfg: ModelConfig, device=None):
         # a mamba block has no separate MLP sublayer
         return {"norm1": L.init_rmsnorm(d, device),
                 "mix": SSM.init_ssm(gen, cfg, device)}
-    if spec.kind != "attn":
+    p = {"norm1": L.init_rmsnorm(d, device)}
+    if spec.kind == "attn":
+        p["mix"] = L.init_attention(gen, cfg, device)
+    elif spec.kind == "mla":
+        p["mix"] = L.init_mla(gen, cfg, device)
+    else:
         raise ValueError(spec.kind)
-    return {
-        "norm1": L.init_rmsnorm(d, device),
-        "mix": L.init_attention(gen, cfg, device),
-        "norm2": L.init_rmsnorm(d, device),
-        "mlp": L.init_mlp(gen, d, cfg.d_ff, L.torch_dtype(cfg.dtype), device),
-    }
+    p["norm2"] = L.init_rmsnorm(d, device)
+    if spec.moe:
+        p["moe"] = MOE.init_moe(gen, cfg, device)
+    else:
+        p["mlp"] = L.init_mlp(gen, d, cfg.d_ff, L.torch_dtype(cfg.dtype),
+                              device)
+    return p
 
 
 def init_layer_cache(spec: LayerSpec, cfg: ModelConfig, batch: int,
                      max_seq: int, dtype=None, device=None):
     if spec.kind == "ssm":
         return SSM.init_ssm_cache(cfg, batch, dtype=dtype, device=device)
+    if spec.kind == "mla":
+        return L.init_mla_cache(cfg, batch, max_seq, dtype=dtype,
+                                device=device)
     if spec.kind != "attn":
         raise ValueError(spec.kind)
     return L.init_kv_cache(cfg, batch, max_seq, window=spec.window,
@@ -100,20 +121,31 @@ def init_layer_cache(spec: LayerSpec, cfg: ModelConfig, batch: int,
 
 
 def apply_layer(spec: LayerSpec, p, x, *, cfg: ModelConfig, mode: str,
-                cache=None, pos=None, positions=None):
-    """Pre-norm residual block. Returns (x, cache')."""
+                cache=None, pos=None, positions=None,
+                moe_dispatch: str = "dense"):
+    """Pre-norm residual block. Returns (x, cache', aux): aux holds the
+    MoE layer's ``moe_aux_loss``, and is empty for other layers."""
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
     if spec.kind == "ssm":
         mix, new_cache = SSM.ssm_layer(p["mix"], h, cfg=cfg, mode=mode,
                                        cache=cache)
-        return x + mix, new_cache
-    mix, new_cache = L.attention_layer(
-        p["mix"], h, cfg=cfg, mode=mode, cache=cache, pos=pos,
-        window=spec.window, positions=positions)
+        return x + mix, new_cache, {}
+    if spec.kind == "mla":
+        mix, new_cache = L.mla_layer(p["mix"], h, cfg=cfg, mode=mode,
+                                     cache=cache, pos=pos,
+                                     positions=positions)
+    else:
+        mix, new_cache = L.attention_layer(
+            p["mix"], h, cfg=cfg, mode=mode, cache=cache, pos=pos,
+            window=spec.window, positions=positions)
     x = x + mix
     h = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
-    x = x + L.mlp(p["mlp"], h, cfg.activation)
-    return x, new_cache
+    aux = {}
+    if spec.moe:
+        out, aux = MOE.moe_fn(moe_dispatch)(p["moe"], h, cfg=cfg)
+    else:
+        out = L.mlp(p["mlp"], h, cfg.activation)
+    return x + out, new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -134,15 +166,20 @@ def init_stack_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
 
 
 def run_stack(layers, x, *, cfg: ModelConfig, mode: str, cache=None,
-              pos=None, positions=None):
-    """Apply every layer in order. Returns (x, cache'); the cache is
-    updated in place and returned for prefill and decode."""
+              pos=None, positions=None, moe_dispatch: str = "dense"):
+    """Apply every layer in order. Returns (x, cache', aux): the cache is
+    updated in place and returned for prefill and decode; aux holds
+    ``moe_aux_loss``, summed over the layers as the JAX package sums it
+    (float32 zero for a model without MoE layers)."""
     specs = block_program(cfg).layers()
+    aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, (spec, p) in enumerate(zip(specs, layers, strict=True)):
         c = cache[i] if cache is not None else None
-        x, _ = apply_layer(spec, p, x, cfg=cfg, mode=mode, cache=c, pos=pos,
-                           positions=positions)
-    if cache is not None and mode in ("prefill", "decode"):
-        return x, cache
-    return x, None
-
+        x, _, aux = apply_layer(spec, p, x, cfg=cfg, mode=mode, cache=c,
+                                pos=pos, positions=positions,
+                                moe_dispatch=moe_dispatch)
+        if "moe_aux_loss" in aux:
+            aux_sum = aux_sum + aux["moe_aux_loss"]
+    new_cache = cache if cache is not None \
+        and mode in ("prefill", "decode") else None
+    return x, new_cache, {"moe_aux_loss": aux_sum}

@@ -19,7 +19,8 @@ as in the JAX package: pages are written at evict (and after prefill, for
 the prefix index) and read at resume.
 
 On the card, prefill attention runs on the flash kernel, every decode step
-on the decode kernel, and a Mamba-2 prefill on the SSD-diagonal kernel.
+of an attention layer on the decode kernel (an MLA layer decodes through
+latent matrix products), and a Mamba-2 prefill on the SSD-diagonal kernel.
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as M
+from repro_torch.models import moe as MOE
 from repro_torch.models.parallel import resolve_device
 from repro_torch.obs.metrics import MetricsRegistry, counter_attr, with_aliases
 from repro_torch.serving.kvcache import KVSnapshot, PagedKVCache, PageTable
@@ -71,7 +73,7 @@ class ServingEngine:
                  max_seq: int = 1024, device=None, temperature: float = 0.0,
                  seed: int = 0, paged: bool = False,
                  kv_blocks: Optional[int] = None, kv_block_tokens: int = 16,
-                 prefix_sharing: bool = True):
+                 prefix_sharing: bool = True, moe_dispatch: str = "dense"):
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params are on {params['embed'].device}, the "
@@ -81,6 +83,10 @@ class ServingEngine:
         self.max_batch = max_batch
         self.max_seq = max_seq
         self.temperature = temperature
+        # the MoE layers' dispatch ("dense" or "capacity"), which the JAX
+        # engine takes from its ParallelContext
+        MOE.moe_fn(moe_dispatch)        # raises on an unknown name
+        self.moe_dispatch = moe_dispatch
         self.cache = M.init_cache(cfg, max_batch, max_seq, device=self.device)
         self.positions = [0] * max_batch
         self.cur_tokens = [0] * max_batch
@@ -239,7 +245,8 @@ class ServingEngine:
                     pos = torch.tensor([i], dtype=torch.int32,
                                        device=self.device)
                     logits, one_cache = M.decode_step(
-                        self.params, tok, one_cache, pos, cfg=self.cfg)
+                        self.params, tok, one_cache, pos, cfg=self.cfg,
+                        moe_dispatch=self.moe_dispatch)
                 last_logits = logits
                 self.n_prefix_hits += 1
                 self.prefix_tokens_reused += skip
@@ -257,9 +264,10 @@ class ServingEngine:
                 one_cache = M.init_cache(self.cfg, 1, self.max_seq,
                                          device=self.device)
                 self._note_compile("prefill", prompt.shape)
-                logits, one_cache = M.forward(self.params, {"tokens": prompt},
-                                              cfg=self.cfg, mode="prefill",
-                                              cache=one_cache)
+                logits, one_cache = M.forward(
+                    self.params, {"tokens": prompt}, cfg=self.cfg,
+                    mode="prefill", cache=one_cache,
+                    moe_dispatch=self.moe_dispatch)
                 last_logits = logits[:, plen - 1]
             self.n_prefills += 1
             if self._sharing:
@@ -347,7 +355,8 @@ class ServingEngine:
                            device=self.device)
         self._note_compile("decode", tokens.shape)
         logits, self.cache = M.decode_step(self.params, tokens, self.cache,
-                                           pos, cfg=self.cfg)
+                                           pos, cfg=self.cfg,
+                                           moe_dispatch=self.moe_dispatch)
         next_tokens = sample_tokens(logits, self.temperature,
                                     generator=self._gen).tolist()
         for slot in active:

@@ -17,7 +17,7 @@ COPIED = sorted(
      for d in ("configs", "cluster", "core")
      for p in (SRC / "repro" / d).glob("*.py")]
     + [Path("obs") / f for f in ("__init__.py", "metrics.py", "trace.py",
-                                 "export.py")]
+                                 "export.py", "report.py")]
     + [Path("serving/perllm_server.py")])
 
 

@@ -125,6 +125,30 @@ def test_engine_runs_on_the_kernels(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "mixtral-8x7b",
+                                  "minicpm3-4b"])
+def test_moe_and_mla_engines_run_on_the_kernels(cuda, arch):
+    """Reduced MoE and MLA engines on the card: every prefill runs the flash
+    kernel once a layer (MLA at head_dim 48), MoE decode runs the decode
+    kernel, and MLA decode none (its decode is latent matrix products)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serving import ServingEngine
+
+    cfg = get_config(arch).reduced(n_layers=2, d_model=128, vocab_size=512)
+    eng = ServingEngine(cfg, init_params(cfg, device=cuda), max_batch=3,
+                        max_seq=128, device=cuda)
+    for i in range(4):
+        eng.submit(list(range(5, 12 + i)), max_new_tokens=4)
+    ops.reset_launches()
+    done = eng.run_until_idle()
+    assert len(done) == 4 and all(len(r.generated) == 4 for r in done)
+    launches = ops.kernel_launches()
+    assert launches["flash_attention"] == 4 * cfg.n_layers
+    assert (launches["decode_attention"] > 0) == (cfg.mla is None)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", DTYPES)
 @pytest.mark.parametrize("hq,hkv,d,page,n_pages,valid", [
     (8, 1, 256, 16, 4, [20, 27, 0, 64]),   # gemma-2b MQA, the engine's page
@@ -291,11 +315,12 @@ def _rms_ok(out, ref):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [48, 64, 96, 128, 256])
 def test_tensor_core_selftest_one_tile(cuda, d):
     """One tile through the kernel's loaders, 128-byte swizzle, wgmma
     descriptors and both wgmma forms: S = Q.Kᵀ from shared memory, O =
-    bf16(S).V with P from registers and V through the transpose bit."""
+    bf16(S).V with P from registers and V through the transpose bit; at D
+    48 and 96 the tiles are zero-padded to 64 and 128 columns."""
     from repro_torch.kernels.flash_attention import tensor_core_selftest
     q, k, v = (torch.from_numpy(_normal(60 + i, 64, d) * 0.5).to(
         cuda, torch.bfloat16) for i in range(3))
@@ -355,6 +380,46 @@ def test_flash_offsets_and_ragged_on_cuda(cuda, dtype, tol, b, hq, hkv, sq,
                                    scale=d ** -0.5)
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
     assert _rms_ok(out, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("d", [48, 96])
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,window,q_offset", [
+    (1, 40, 40, 32, 32, 0, 0),        # minicpm3-4b's MLA prefill, bucket 32
+    (1, 4, 4, 5, 5, 0, 0),            # reduced MLA, a ragged bucket
+    (2, 8, 2, 40, 40, 16, 0),         # GQA, window
+    (1, 8, 1, 33, 100, 0, 67),        # q_offset, ragged tiles
+    (1, 4, 2, 300, 700, 64, 400),     # long ragged rows, window and offset
+])
+def test_flash_mla_head_dims_on_cuda(cuda, dtype, tol, d, b, hq, hkv, sq, sk,
+                                     window, q_offset):
+    """head_dim 48 and 96 (MLA's qk_nope + qk_rope): bf16 on the
+    tensor-core kernel with its tiles padded to 64 and 128 columns in
+    shared memory, float32 on the CUDA-core kernel, both against the plain
+    version, and again on strided views whose rows are wider than d."""
+    dt = TORCH_DT[dtype]
+    q = torch.from_numpy(_normal(70, b, hq, sq, d)).to(cuda, dt)
+    k = torch.from_numpy(_normal(71, b, hkv, sk, d)).to(cuda, dt)
+    v = torch.from_numpy(_normal(72, b, hkv, sk, d)).to(cuda, dt)
+    out = flash_attention(q, k, v, window=window, q_offset=q_offset,
+                          scale=d ** -0.5)
+    torch.cuda.synchronize()
+    ref = tref.flash_attention_ref(q, k, v, window=window, q_offset=q_offset,
+                                   scale=d ** -0.5)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    assert _rms_ok(out, ref)
+    # model layout (B, S, H, D) views into rows 32 columns wider, the extra
+    # columns NaN: the loaders read the d real columns of each row only
+    views = []
+    for x in (q, k, v):
+        wide = torch.full(x.shape[:3] + (d + 32,), float("nan"), device=cuda,
+                          dtype=dt)
+        wide[..., :d] = x
+        views.append(wide.transpose(1, 2)[..., :d])
+    got = ops.flash_attention(*views, window=window, q_offset=q_offset,
+                              scale=d ** -0.5)
+    torch.testing.assert_close(got.transpose(1, 2), out, rtol=0, atol=0)
 
 
 @pytest.mark.gpu
