@@ -48,9 +48,18 @@ fails:
    latent pages, and mixtral-8x7b at full width with its depth cut to 4
    layers (32 do not fit one card), bf16, each served through the
    launcher's engine and freed before the next; the reduced float32 engines
-   of the three (and a paged minicpm3 one) are in phases 4 and 5.
+   of the three (and a paged minicpm3 one) are in phases 4 and 5;
+9. rg-lru / m-rope: full-width recurrentgemma-2b (26 layers: 18 RG-LRU
+   layers and 8 attention layers of 10 q-heads on 1 kv-head, window 2048),
+   dense and `--paged` (a request evicted and resumed with the dense
+   engine's tokens, the paged kernel at 10 q-heads a kv-head on every
+   attention layer's pool), and qwen2-vl-2b (28 M-RoPE attention layers,
+   12 q-heads on 2), bf16, served through the launcher and freed one after
+   the other: flash once an attention layer a prefill, decode once an
+   attention layer a decode step; the reduced float32 engines of both (and
+   a paged recurrentgemma one) are in phases 4 and 5.
 
-`--profile` also traces the warm engine runs of phases 4, 5 and 8 with
+`--profile` also traces the warm engine runs of phases 4, 5, 8 and 9 with
 torch.profiler (device time by kernel and the device's busy share of the
 wall time).
 
@@ -463,6 +472,18 @@ FLASH_CASES = [
      "long: deepseek-moe-16b heads S=4096"),
     (1, 32, 8, 32, 32, 128, 4096, 0, "bfloat16",
      "path: mixtral-8x7b prefill, bucket 32"),
+    # recurrentgemma-2b's attention layers: 10 q-heads on 1 kv-head, D 256,
+    # window 2048 (binding past S = 2048: tests/test_torch_gpu.py runs
+    # S = 2500); qwen2-vl-2b's 12 on 2 at D 128
+    (1, 10, 1, 32, 32, 256, 2048, 0, "bfloat16",
+     "path: recurrentgemma-2b prefill, bucket 32"),
+    (1, 10, 1, 32, 32, 256, 2048, 0, "float32", "recurrentgemma-2b heads, f32"),
+    (1, 10, 1, 2048, 2048, 256, 2048, 0, "bfloat16",
+     "long: recurrentgemma-2b heads"),
+    (1, 12, 2, 32, 32, 128, 0, 0, "bfloat16",
+     "path: qwen2-vl-2b prefill, bucket 32"),
+    (1, 12, 2, 32, 32, 128, 0, 0, "float32", "qwen2-vl-2b heads, f32"),
+    (1, 12, 2, 2048, 2048, 128, 0, 0, "bfloat16", "long: qwen2-vl-2b heads"),
 ]
 # (hq, hkv, s, d, valid_len per row, dtype, label)
 DECODE_CASES = [
@@ -482,6 +503,19 @@ DECODE_CASES = [
      "long: deepseek-moe-16b B=32 S=4096"),
     (32, 8, 256, 128, [20, 27, 33, 41], "bfloat16",
      "path: mixtral-8x7b decode"),
+    # 10 q-heads a kv-head: the bf16 kernel's 16-row tile, float32 in two
+    # sub-groups of 5; the long rows read the gemma-2b rows' K/V bytes
+    (10, 1, 256, 256, [20, 27, 33, 41], "bfloat16",
+     "path: recurrentgemma-2b decode"),
+    (10, 1, 256, 256, [20, 27, 33, 41], "float32",
+     "path: recurrentgemma-2b decode, f32"),
+    (10, 1, 4096, 256, [4096] * 32, "bfloat16",
+     "long: recurrentgemma-2b B=32 S=4096"),
+    (10, 1, 4096, 256, [4096] * 32, "float32",
+     "long: recurrentgemma-2b B=32 S=4096, f32"),
+    (16, 1, 1024, 128, [0, 1, 300, 1024], "bfloat16", "G 16, valid 0"),
+    (16, 1, 1024, 128, [0, 1, 300, 1024], "float32", "G 16, valid 0, f32"),
+    (12, 2, 256, 128, [20, 27, 33, 41], "bfloat16", "path: qwen2-vl-2b decode"),
 ]
 # (hq, hkv, d, page, n_pages, valid_len per row, dtype, label); shuffled
 # tables with a pad entry on page 0
@@ -499,6 +533,14 @@ PAGED_CASES = [
      "long: gemma-2b B=32 4096 tokens"),
     (8, 1, 256, 16, 256, [4096] * 32, "float32",
      "long: gemma-2b B=32 4096 tokens, f32"),
+    (10, 1, 256, 16, 16, [20, 27, 0, 41], "bfloat16",
+     "path: recurrentgemma-2b pool, page 16"),
+    (10, 1, 256, 16, 16, [20, 27, 0, 41], "float32",
+     "recurrentgemma-2b pool, f32"),
+    (10, 1, 256, 16, 256, [4096] * 32, "bfloat16",
+     "long: recurrentgemma-2b B=32 4096 tokens"),
+    (10, 1, 256, 16, 256, [4096] * 32, "float32",
+     "long: recurrentgemma-2b B=32 4096 tokens, f32"),
 ]
 # (b, s, h, p, n, chunk, label): mamba2-2.7b's 80 heads of 64, state 128;
 # the engine's prompt buckets give chunk = min(256, bucket)
@@ -523,6 +565,10 @@ SSD_CASES = [
 # mamba2's prompts are no powers of two (the bucket padding runs through the
 # recurrence) and its 70-token prompt spans 8 chunks of 16. mixtral's rolling
 # window is 64 slots too; minicpm3's MLA prefill runs flash at head_dim 48.
+# recurrentgemma's prompts are no powers of two either (the padding runs
+# through its RG-LRU states); at 64 slots its 64-slot window fills the
+# cache, so a paged engine pages its K/V. qwen2-vl prefills with M-RoPE's
+# (3, 1, S) streams.
 SMALL_ENGINES = {
     "gemma-2b": (dict(n_layers=2, d_model=256, vocab_size=512), 64,
                  [3, 7, 11, 15, 19], 8),
@@ -536,6 +582,10 @@ SMALL_ENGINES = {
                      [45, 52, 60, 70], 24),
     "minicpm3-4b": (dict(n_layers=2, d_model=128, vocab_size=512), 64,
                     [3, 7, 11, 15, 19], 8),
+    "recurrentgemma-2b": (dict(n_layers=3, d_model=128, vocab_size=512), 64,
+                          [5, 13, 29, 45], 16),
+    "qwen2-vl-2b": (dict(n_layers=2, d_model=128, vocab_size=512), 64,
+                    [3, 7, 11, 15, 19], 8),
 }
 # full-width MoE and MLA engines: (arch, launcher flags beyond SERVE_ARGS',
 # layers kept). mixtral-8x7b's 32 layers are 93 GB in bf16, beyond one card:
@@ -545,6 +595,13 @@ BIG_ENGINES = [
     ("minicpm3-4b", [], None),
     ("minicpm3-4b", ["--paged"], None),
     ("mixtral-8x7b", [], 4),
+]
+# phase 9, the RG-LRU hybrid and M-RoPE families at full width, in the same
+# form
+NEW_ENGINES = [
+    ("recurrentgemma-2b", [], None),
+    ("recurrentgemma-2b", ["--paged"], None),
+    ("qwen2-vl-2b", [], None),
 ]
 
 
@@ -596,8 +653,8 @@ def small_paged_run(arch: str, device: str):
     """A reduced float32 paged engine: the first request is evicted
     mid-decode and resumed from its pages; the second prompt opens with the
     first one's two full blocks (a prefix hit where the cache is all pages,
-    not for mamba2). Returns (tokens, uninterrupted dense tokens, prefix
-    hits, prefills)."""
+    not for mamba2 or recurrentgemma). Returns (tokens, uninterrupted dense
+    tokens, prefix hits, prefills)."""
     bt = 16
     head = [(5 * j + 2) % 512 for j in range(2 * bt)]
     prompts = [head + [9, 8, 7, 6, 5], head + [1, 2, 3], [4, 5, 6, 7, 8, 9]]
@@ -614,16 +671,19 @@ def small_paged_run(arch: str, device: str):
 
 def paged_pool_check(params, cfg):
     """Full-width paged engine (bf16): a request evicted mid-decode. Right
-    after the eviction the paged kernel reads every layer's pool through
-    the request's page table; it is held against the plain version. The
-    resumed request must end with the uninterrupted dense engine's tokens.
-    Returns the worst errors and, per layer, the query, the paged output
-    and the slot's dense cache taken just before the eviction, for
-    `decode_yardstick`."""
+    after the eviction the paged kernel reads every attention layer's pool
+    through the request's page table; it is held against the plain version.
+    The resumed request must end with the uninterrupted dense engine's
+    tokens. Returns the worst errors and, per attention layer, the query,
+    the paged output and the slot's dense cache taken just before the
+    eviction, for `decode_yardstick`."""
     import torch
     from repro_torch.kernels import ops, ref
+    from repro_torch.models.transformer import block_program
     from repro_torch.serving import ServingEngine
     dev = torch.device(DEVICE)
+    attn = [i for i, spec in enumerate(block_program(cfg).layers())
+            if spec.kind == "attn"]
     prompt = [(13 * j + 5) % cfg.vocab_size for j in range(40)]
     dense = ServingEngine(cfg, params, max_batch=1, max_seq=256, device=dev)
     want = dense.submit(prompt, max_new_tokens=24)
@@ -640,9 +700,10 @@ def paged_pool_check(params, cfg):
     gen = torch.Generator(device=dev).manual_seed(4)
     hq, d = cfg.n_heads, cfg.resolved_head_dim
     worst = {"vs_plain": 0.0, "valid_len": pos,
-             "pages": len(req.pages.blocks), "layers": cfg.n_layers}
+             "pages": len(req.pages.blocks), "layers": len(attn),
+             "group": hq // cfg.n_kv_heads}
     outs = []
-    for layer in range(cfg.n_layers):
+    for layer in attn:
         kp, vp = eng.kv.pool_views(layer)
         q = torch.randn(1, hq, d, generator=gen, device=dev).to(kp.dtype)
         got = ops.paged_attention(q, kp, vp, table, pos, scale=d ** -0.5,
@@ -671,14 +732,13 @@ def decode_yardstick(worst: dict, outs) -> None:
     from repro_torch.kernels import ops
     pos = worst["valid_len"]
     worst["vs_decode_kernel"] = 0.0
-    for layer, (q, got, cache) in enumerate(outs):
+    for q, got, cache in outs:
         d = q.shape[-1]
         dec = ops.decode_attention(q, cache["k"], cache["v"], pos,
                                    scale=d ** -0.5, force_kernel=True)
         err, _, ok = close(got, dec, str(got.dtype).split(".")[-1])
         if not ok:
-            fail(f"paged kernel on layer {layer}'s pool vs_decode_kernel: "
-                 f"err {err:.3e}")
+            fail(f"paged kernel on a pool vs_decode_kernel: err {err:.3e}")
         worst["vs_decode_kernel"] = max(worst["vs_decode_kernel"], err)
 
 
@@ -746,11 +806,12 @@ def warm_engine_run(eng, prompts, profile: bool, new: int = 16) -> dict:
 
 
 def big_engine(arch, flags, n_layers, run_path, profile: bool, card: str):
-    """Phase 8: `arch` at full width (bf16, random weights from a seed)
-    served through the launcher's engine with SERVE_ARGS' 8 requests, its
-    depth cut to `n_layers` where given; checks the tokens, the kernels'
-    launch counts and the logits, then serves the same prompts warm.
-    Returns the engine."""
+    """Phases 8 and 9: `arch` at full width (bf16, random weights from a
+    seed) served through the launcher's engine with SERVE_ARGS' 8 requests,
+    its depth cut to `n_layers` where given; checks the tokens, the
+    kernels' launch counts (flash once an attention layer a prefill, decode
+    once an attention layer a model decode step) and the logits, then
+    serves the same prompts warm. Returns the engine."""
     import dataclasses
     import torch
     from repro_torch.configs import get_config
@@ -765,25 +826,27 @@ def big_engine(arch, flags, n_layers, run_path, profile: bool, card: str):
         label, lambda: serve.run_single(args, cfg=cfg))
     cfg = eng.cfg
     layers = cfg.n_layers
-    n_done, prefills = len(done), eng.n_prefills
+    n_attn = cfg.attention_layer_count()
+    n_done, prefills, steps = len(done), eng.n_prefills, eng.n_decode_steps
     toks = sum(len(r.generated) for r in done)
     if n_done != 8 or any(len(r.generated) != 16 for r in done):
         fail(f"{label}: the engine did not finish every request")
     if any(not 0 <= t < cfg.vocab_size for r in done for t in r.generated):
         fail(f"{label}: the engine produced tokens outside the vocabulary")
     flash, dec = launches["flash_attention"], launches["decode_attention"]
-    if flash != prefills * layers:
-        fail(f"{label}: prefill did not run the flash kernel once per layer")
+    if flash != prefills * n_attn:
+        fail(f"{label}: prefill did not run the flash kernel once per "
+             f"attention layer: {flash} for {prefills} x {n_attn}")
     if cfg.mla is not None:
         if dec:
             fail(f"{label}: MLA decode ran the decode kernel")
         dec_note = ("decode 0 (MLA decodes through latent matrix products, "
                     "no decode kernel)")
     else:
-        if dec <= 0 or dec % layers:
+        if steps <= 0 or dec != steps * n_attn:
             fail(f"{label}: decode did not run the decode kernel once per "
-                 f"layer a step")
-        dec_note = f"decode {dec} = {dec // layers} steps x {layers} layers"
+                 f"attention layer a step: {dec} for {steps} x {n_attn}")
+        dec_note = f"decode {dec} = {steps} steps x {n_attn} attention layers"
     probe = torch.tensor([done[0].prompt], device=DEVICE)
     logits, _ = forward(eng.params, {"tokens": probe}, cfg=cfg, mode="train")
     if logits.shape != (1, probe.shape[1], cfg.vocab_size) \
@@ -797,8 +860,8 @@ def big_engine(arch, flags, n_layers, run_path, profile: bool, card: str):
           f"{toks} tokens, cold {secs:.2f} s ({toks / secs:.1f} tok/s), "
           f"warm {warm['seconds']:.3f} s ({warm['tok_per_s']:.1f} tok/s, "
           f"{warm['steps']} steps, {warm['ms_per_step']:.2f} ms/step) on "
-          f"{card}; flash {flash} = {prefills} prefills x {layers} "
-          f"layers, {dec_note}; peak memory "
+          f"{card}; flash {flash} = {prefills} prefills x {n_attn} "
+          f"attention layers (of {layers}), {dec_note}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB", flush=True)
     return eng
 
@@ -981,7 +1044,8 @@ def main(argv=None) -> None:
     del eng, done
     torch.cuda.empty_cache()
 
-    for arch in ("mamba2-2.7b", "gemma-2b", "minicpm3-4b"):
+    for arch in ("mamba2-2.7b", "gemma-2b", "minicpm3-4b",
+                 "recurrentgemma-2b"):
         label = f"reduced paged {arch}"
         card, card_ref, hits, prefills = run_path(
             label, lambda arch=arch: small_paged_run(arch, DEVICE))
@@ -996,8 +1060,9 @@ def main(argv=None) -> None:
         if card[0] != card_ref[0] or cpu != cpu_ref:
             fail(f"{label}: the resumed request's tokens differ from the "
                  f"uninterrupted run's")
-        if prefills != 3 or hits != cpu_hits \
-                or hits != (0 if arch.startswith("mamba2") else 1):
+        recurrent = arch.startswith(("mamba2", "recurrentgemma"))
+        if prefills != 3 or hits != cpu_hits or hits != (0 if recurrent
+                                                         else 1):
             fail(f"{label}: {prefills} prefills and {hits} prefix hits")
 
     # 6. full-width paged gemma-2b: stalls through the launcher; eviction,
@@ -1020,7 +1085,8 @@ def main(argv=None) -> None:
         fail("the paged engine did not return every block")
     pool_rows, pool_outs = run_path(
         "paged pool", lambda: paged_pool_check(peng.params, peng.cfg))
-    if paths["paged pool"]["paged_attention"] != n_layers:
+    if paths["paged pool"]["paged_attention"] != pool_rows["layers"] \
+            or pool_rows["layers"] != n_layers:
         fail("the paged kernel did not run once per layer on the pool")
     decode_yardstick(pool_rows, pool_outs)
     del pool_outs
@@ -1083,6 +1149,30 @@ def main(argv=None) -> None:
             if heng.n_prefix_hits < 1 or heng.prefix_tokens_reused < 32:
                 fail(f"the full-width paged {arch} engine took no prefix hit")
             del heng
+        del eng
+        torch.cuda.empty_cache()
+
+    # 9. the RG-LRU hybrid and M-RoPE at full width, each freed before the
+    # next; on the paged recurrentgemma engine's pools, the paged kernel at
+    # 10 q-heads a kv-head
+    for arch, flags, n_layers in NEW_ENGINES:
+        torch.cuda.reset_peak_memory_stats()
+        eng = big_engine(arch, flags, n_layers, run_path_out,
+                         profile and not flags, name)
+        if eng.paged:
+            if eng.kv.supports_prefix:
+                fail(f"the paged {arch} engine keeps a prefix index")
+            label = f"paged pool {arch}"
+            rows_p, outs_p = run_path(
+                label, lambda: paged_pool_check(eng.params, eng.cfg))
+            if paths[label]["paged_attention"] != rows_p["layers"] \
+                    or rows_p["layers"] != eng.cfg.attention_layer_count():
+                fail(f"the paged kernel did not run once per attention layer "
+                     f"on the {arch} pools")
+            decode_yardstick(rows_p, outs_p)
+            del outs_p
+            print(f"paged kernel on the live pools ({arch}, bf16): {rows_p}",
+                  flush=True)
         del eng
         torch.cuda.empty_cache()
 

@@ -16,8 +16,9 @@
 //
 // Design (decode_kernels.cuh, shared with the paged pool): the Pallas grid
 // (b, q-head, kv-block) reads every K/V tile once per q-head. Here a CTA
-// owns (split, kv-head, batch) and all G q-heads of its kv-head, so each
-// K/V row is read from device memory once; the slots are split across CTAs
+// owns (split, kv-head, batch) and all G <= 16 q-heads of its kv-head (in
+// float32 a group above 8 goes to two CTAs), so each K/V row is read from
+// device memory once; the slots are split across CTAs
 // so that a small batch (gemma-2b has one kv-head: 4 CTAs at B = 4 without
 // splits) still fills the 132 SMs. The host picks the split count from S,
 // B * Hkv and the SM count (kernels/ref.py split_plan: one wave of CTAs,

@@ -13,8 +13,9 @@
 // the split rule, the shared-memory ring, the products, the softmax, the
 // merge and the combine pass, is the same code for both.
 //
-// A CTA owns (split, kv-head, batch) and all G q-heads of its kv-head, so
-// each K/V row is read from device memory once; the slots are split across
+// A CTA owns (split, kv-head, batch) and all G q-heads of its kv-head (a
+// float32 group above 8: one of two sub-groups, see below), so each K/V row
+// is read from device memory once; the slots are split across
 // CTAs so that a small batch still fills the 132 SMs (kernels/ref.py
 // split_plan). A CTA whose slots lie past its row's valid length stores an
 // empty state and exits. A CTA streams its slots through a two-stage ring of
@@ -27,12 +28,18 @@
 // bf16: `tc::decode_tc_kernel`, both products on the tensor cores with
 // mma.sync (see its note below): on the CUDA cores the 2*D*G multiply-adds
 // of a slot, not its bytes, would bound it. Any D that is a multiple of 16
-// (48, 80 and 96 included).
+// (48, 80 and 96 included), and groups of up to 16 q-heads, the M rows of
+// one mma tile: K/V are read once per kv-head whatever the group.
 //
 // float32: `decode_split_kernel`, on the CUDA cores (f32 keeps 2e-5). The
 // four warps split the slots; each slot's row is read from shared memory
 // as 16-byte vectors by a group of DP * sizeof(T) / 16 lanes (at most 32),
 // each lane holding its columns of q and of the output for every q-head.
+// A CTA holds at most 8 q-heads (kMaxF32Heads): at 16 the registers of q,
+// the output and the dot products would spill, and the merge states of D =
+// 256 would not fit the ring. A larger group (9 to 16) is split into equal
+// sub-groups on the grid's y axis, so K/V are read once per sub-group (twice
+// per kv-head): float32 is the parity path, not the served one.
 // DP is D rounded up to a power of two, so the lane groups divide a warp:
 // at D = 48, 80 and 96 the ring's columns past D are zeros and so are q's,
 // and they are never stored. The G * 4 partial dot products of four steps
@@ -54,6 +61,8 @@ constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kStages = 2;
 constexpr int kTileBytes = 16384;  // K or V of one tile
+constexpr int kMaxGroup = 16;      // q-heads per kv-head the kernels take
+constexpr int kMaxF32Heads = 8;    // q-heads a float32 CTA holds
 
 struct Strides2 {
   int64_t b, h;
@@ -232,8 +241,8 @@ template <typename T, int D, int DP, int G, typename KV>
 __global__ void __launch_bounds__(kThreads)
 decode_split_kernel(const T* __restrict__ q, KV kv, const int* __restrict__ valid_len,
                     T* __restrict__ o, float* __restrict__ ws, Strides2 qs, Strides2 os,
-                    int group, int hq, int batch, int s_len, int split_len, int n_split,
-                    float scale) {
+                    int group, int sub_len, int hq, int batch, int s_len, int split_len,
+                    int n_split, float scale) {
   using R = Cfg<T, DP, G>;
   constexpr int C = R::kCols;
   constexpr int U = R::kUnroll;
@@ -245,16 +254,21 @@ decode_split_kernel(const T* __restrict__ q, KV kv, const int* __restrict__ vali
   const int sub = lane / R::kLanes;  // the slot of this lane's group in a step
   const int j = lane % R::kLanes;    // the lane within its group
   const int split = blockIdx.x;
-  const int hk = blockIdx.y;
+  // blockIdx.y: kv-head hk's sub-group `sg` of sub_len q-heads (one
+  // sub-group, the whole group, unless the group exceeds kMaxF32Heads)
+  const int n_sub = (group + sub_len - 1) / sub_len;
+  const int hk = blockIdx.y / n_sub;
+  const int sg = blockIdx.y - hk * n_sub;
   const int b = blockIdx.z;
-  const int h0 = hk * group;
+  const int h0 = hk * group + sg * sub_len;
+  const int heads = min(sub_len, group - sg * sub_len);  // this CTA's q-heads
 
   const int vl = valid_len[b];
   const bool all_masked = vl <= 0;  // every slot masked: uniform softmax
   const int n = all_masked ? s_len : min(vl, s_len);
   const splitkv::Range range = splitkv::split_range(split, split_len, n);
   if (range.begin >= range.end) {  // only a split past the first can be empty
-    splitkv::store_empty(ws, b, h0, group, split, hq, n_split);
+    splitkv::store_empty(ws, b, h0, heads, split, hq, n_split);
     return;
   }
 
@@ -274,13 +288,13 @@ decode_split_kernel(const T* __restrict__ q, KV kv, const int* __restrict__ vali
   float qr[G][C];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    const T* qh = q + b * qs.b + (h0 + (g < group ? g : 0)) * qs.h;
+    const T* qh = q + b * qs.b + (h0 + (g < heads ? g : 0)) * qs.h;
 #pragma unroll
     for (int vv = 0; vv < R::kVecs; ++vv)
 #pragma unroll
       for (int e = 0; e < R::kElems; ++e) {
         const int col = (vv * R::kLanes + j) * R::kElems + e;
-        qr[g][vv * R::kElems + e] = g < group && col < D ? to_f32(qh[col]) : 0.f;
+        qr[g][vv * R::kElems + e] = g < heads && col < D ? to_f32(qh[col]) : 0.f;
       }
   }
   float m[G], l[G], acc[G][C];
@@ -407,22 +421,26 @@ decode_split_kernel(const T* __restrict__ q, KV kv, const int* __restrict__ vali
             acc[g][vv * R::kElems + e];
   }
   __syncthreads();
-  splitkv::merge_and_store<T, G, D, R::kStates, DP>(m_s, l_s, acc_s, group, b, h0, split,
+  splitkv::merge_and_store<T, G, D, R::kStates, DP>(m_s, l_s, acc_s, heads, b, h0, split,
                                                     n_split, hq, batch, o, os.b, os.h, ws);
 }
 
 // ---------------------------------------------------------------------------
 // bf16: tensor cores (mma.sync.m16n8k16, f32 accumulate). The q-heads are
-// the M rows (G <= 8 of 16; rows past G are zeros and never stored), a
-// warp owns 16 slots of each 64-slot tile: S = Q.K^T as two n-tiles of 8
-// slots over D / 16 k-steps (K fragments by ldmatrix from the ring), an
-// online softmax over its slots, and O += P.V with P from the S registers
-// (the accumulator layout of two n-tiles is the A layout of one k-step) and
-// V fragments by ldmatrix.trans, so V needs no transpose. For a row with at
-// most kExactPKeys valid slots P goes in as three bf16 terms (hi + mid +
-// lo): there the outputs are large and one bf16 P would move them by an
-// output ulp. Ring rows are padded by 16 bytes so that ldmatrix reads are
-// free of bank conflicts; rows past the split are zero-filled.
+// the M rows of one tile: G <= 8 fill its first 8 rows (rows 8..15 are
+// zeros and never stored), G = 16 (groups 9..16) both halves, each lane
+// then holding two rows (`row` and `row + 8`) of S, of the softmax state
+// and of O. A warp owns 16 slots of each 64-slot tile: S = Q.K^T as two
+// n-tiles of 8 slots over D / 16 k-steps (K fragments by ldmatrix from the
+// ring), an online softmax over its slots, and O += P.V with P from the S
+// registers (the accumulator layout of two n-tiles is the A layout of one
+// k-step) and V fragments by ldmatrix.trans, so V needs no transpose. The
+// K/V bytes do not grow with G: the 16-row tile costs the 8-row one's
+// loads and mma count. For a row with at most kExactPKeys valid slots P
+// goes in as three bf16 terms (hi + mid + lo): there the outputs are large
+// and one bf16 P would move them by an output ulp. Ring rows are padded by
+// 16 bytes so that ldmatrix reads are free of bank conflicts; rows past the
+// split are zero-filled.
 // ---------------------------------------------------------------------------
 
 namespace tc {
@@ -437,7 +455,6 @@ struct TcCfg {
   static constexpr int kTileElems = kTile * kRow;           // one K or V tile
   static constexpr int kSmem = kStages * 2 * kTileElems * 2;
   static_assert(D % 16 == 0, "the mma k-steps take 16 columns");
-  static_assert(kWarps * 8 * (D + 2) * 4 <= kSmem, "merge states exceed the ring");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -515,14 +532,17 @@ decode_tc_kernel(const bf16* __restrict__ q, KV kv, const int* __restrict__ vali
                  float scale) {
   using L = TcCfg<D>;
   constexpr int kRow = L::kRow;
-  constexpr int KS = D / 16;  // k-steps of Q.K^T
-  constexpr int NT = D / 8;   // n-tiles of O
+  constexpr int KS = D / 16;           // k-steps of Q.K^T
+  constexpr int NT = D / 8;            // n-tiles of O
+  constexpr int MH = G > 8 ? 2 : 1;    // 8-row halves of the M tile that hold q-heads
+  static_assert(G <= 16, "one m16 tile holds at most 16 q-heads");
+  static_assert(kWarps * G * (D + 2) * 4 <= L::kSmem, "merge states exceed the ring");
   extern __shared__ __align__(16) unsigned char decode_smem[];
   bf16* ring = reinterpret_cast<bf16*>(decode_smem);  // stage s: K at 2s tiles, V at 2s + 1
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int row = lane / 4;        // this lane's q-head (its M row)
+  const int row = lane / 4;        // this lane's q-head (its M row), and row + 8 where MH = 2
   const int quad = lane % 4;
   const int split = blockIdx.x;
   const int hk = blockIdx.y;
@@ -543,25 +563,37 @@ decode_tc_kernel(const bf16* __restrict__ q, KV kv, const int* __restrict__ vali
   const int n_tiles = (range.end - range.begin + kTile - 1) / kTile;
   load_tile<D>(ring, ring + L::kTileElems, rows, range.begin, range.end);
 
-  // Q as A fragments: a0 holds row `row`, columns 16kk + 2 * quad (+1),
-  // a2 the same 8 columns on; rows 8..15 (a1, a3) are zero
-  uint32_t qa[KS][2];
-  {
-    const bool live = row < group && row < G;
-    const bf16* qh = q + b * qs.b + (h0 + (live ? row : 0)) * qs.h;
+  // Q as A fragments: qa[kk][half][hh] holds row `row + 8 hh`, columns
+  // 16kk + 8 half + 2 * quad (+1): a0 = [0][0], a1 = [0][1], a2 = [1][0],
+  // a3 = [1][1]; with MH = 1 a1 and a3 (rows 8..15) are zero
+  uint32_t qa[KS][2][MH];
+#pragma unroll
+  for (int hh = 0; hh < MH; ++hh) {
+    const int r = row + 8 * hh;
+    const bool live = r < group && r < G;
+    const bf16* qh = q + b * qs.b + (h0 + (live ? r : 0)) * qs.h;
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk)
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int c = 16 * kk + 8 * half + 2 * quad;
-        qa[kk][half] = live ? pack(__bfloat162float(qh[c]), __bfloat162float(qh[c + 1])) : 0u;
+        qa[kk][half][hh] =
+            live ? pack(__bfloat162float(qh[c]), __bfloat162float(qh[c + 1])) : 0u;
       }
   }
 
-  float acc[NT][2];  // O rows `row`: columns 8 nt + 2 * quad (+1)
+  // O rows `row + 8 hh`: columns 8 nt + 2 * quad (+1) in acc[nt][2 hh (+1)]
+  float acc[NT][2 * MH];
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt) acc[nt][0] = acc[nt][1] = 0.f;
-  float m_run = -INFINITY, l_run = 0.f;
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2 * MH; ++e) acc[nt][e] = 0.f;
+  float m_run[MH], l_run[MH];
+#pragma unroll
+  for (int hh = 0; hh < MH; ++hh) {
+    m_run[hh] = -INFINITY;
+    l_run[hh] = 0.f;
+  }
 
   for (int t = 0; t < n_tiles; ++t) {
     const int s0 = range.begin + t * kTile;
@@ -578,7 +610,8 @@ decode_tc_kernel(const bf16* __restrict__ q, KV kv, const int* __restrict__ vali
     const int w0 = s0 + warp * 16;  // this warp's first slot
 
     if (w0 < range.end) {  // warp-uniform
-      // S = Q.K^T over this warp's 16 slots: two n-tiles of 8
+      // S = Q.K^T over this warp's 16 slots: two n-tiles of 8; sc[j][e]
+      // holds row `row + 8 (e / 2)`, slot w0 + 8j + 2 quad + e % 2
       float sc[2][4];
 #pragma unroll
       for (int j = 0; j < 2; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
@@ -589,43 +622,56 @@ decode_tc_kernel(const bf16* __restrict__ q, KV kv, const int* __restrict__ vali
           // matrices: slots 8j.. of columns 16kk, 16kk + 8, 16kk + 16, 16kk + 24
           uint32_t bk[4];
           ldsm_x4(smem_u32(kt + (8 * j + lane % 8) * kRow + 16 * kk + 8 * (lane / 8)), bk);
-          mma(sc[j], qa[kk][0], 0u, qa[kk][1], 0u, bk[0], bk[1]);
-          if (kk + 1 < KS) mma(sc[j], qa[kk + 1][0], 0u, qa[kk + 1][1], 0u, bk[2], bk[3]);
+          mma(sc[j], qa[kk][0][0], MH > 1 ? qa[kk][0][MH - 1] : 0u, qa[kk][1][0],
+              MH > 1 ? qa[kk][1][MH - 1] : 0u, bk[0], bk[1]);
+          if (kk + 1 < KS)
+            mma(sc[j], qa[kk + 1][0][0], MH > 1 ? qa[kk + 1][0][MH - 1] : 0u, qa[kk + 1][1][0],
+                MH > 1 ? qa[kk + 1][1][MH - 1] : 0u, bk[2], bk[3]);
         }
-      // row `row`'s scores: slots w0 + 8j + 2 quad + e in sc[j][e]
-      float mt = -INFINITY;
+      float mt[MH];
+#pragma unroll
+      for (int hh = 0; hh < MH; ++hh) mt[hh] = -INFINITY;
 #pragma unroll
       for (int j = 0; j < 2; ++j)
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int slot = w0 + 8 * j + 2 * quad + e;
+        for (int e = 0; e < 2 * MH; ++e) {
+          const int slot = w0 + 8 * j + 2 * quad + (e & 1);
           float x = slot >= range.end ? -INFINITY : (all_masked ? kNegInf : sc[j][e] * scale);
           sc[j][e] = x;
-          mt = fmaxf(mt, x);
+          mt[e / 2] = fmaxf(mt[e / 2], x);
         }
-      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
-      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
-      const float m_new = fmaxf(m_run, mt);  // finite: w0 < range.end
-      const float alpha = __expf(m_run - m_new);
-      m_run = m_new;
-      l_run *= alpha;
+      float m_new[MH];
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        acc[nt][0] *= alpha;
-        acc[nt][1] *= alpha;
+      for (int hh = 0; hh < MH; ++hh) {
+        mt[hh] = fmaxf(mt[hh], __shfl_xor_sync(0xffffffffu, mt[hh], 1));
+        mt[hh] = fmaxf(mt[hh], __shfl_xor_sync(0xffffffffu, mt[hh], 2));
+        m_new[hh] = fmaxf(m_run[hh], mt[hh]);  // finite: w0 < range.end
+        const float alpha = __expf(m_run[hh] - m_new[hh]);
+        m_run[hh] = m_new[hh];
+        l_run[hh] *= alpha;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          acc[nt][2 * hh] *= alpha;
+          acc[nt][2 * hh + 1] *= alpha;
+        }
       }
 #pragma unroll
       for (int j = 0; j < 2; ++j)
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          sc[j][e] = __expf(sc[j][e] - m_new);
-          l_run += sc[j][e];
+        for (int e = 0; e < 2 * MH; ++e) {
+          sc[j][e] = __expf(sc[j][e] - m_new[e / 2]);
+          l_run[e / 2] += sc[j][e];
         }
       // O += P.V, P as one bf16 term or three
       const int terms = exact ? 3 : 1;
       for (int term = 0; term < terms; ++term) {
         const uint32_t pa0 = split_pair(sc[0][0], sc[0][1]);
         const uint32_t pa2 = split_pair(sc[1][0], sc[1][1]);
+        uint32_t pa1 = 0u, pa3 = 0u;  // rows 8..15
+        if constexpr (MH > 1) {
+          pa1 = split_pair(sc[0][2], sc[0][3]);
+          pa3 = split_pair(sc[1][2], sc[1][3]);
+        }
 #pragma unroll
         for (int nt = 0; nt < NT; nt += 2) {
           // matrices: slots 0-7 and 8-15 of columns 8nt.., then of 8nt + 8..
@@ -633,15 +679,22 @@ decode_tc_kernel(const bf16* __restrict__ q, KV kv, const int* __restrict__ vali
           ldsm_x4_t(smem_u32(vt + (lane % 8 + 8 * ((lane / 8) % 2)) * kRow + 8 * nt +
                              8 * (lane / 16)),
                     bv);
-          // the M rows past 8 (c[2], c[3]) take zeros and give zeros
-          float c0[4] = {acc[nt][0], acc[nt][1], 0.f, 0.f};
-          mma(c0, pa0, 0u, pa2, 0u, bv[0], bv[1]);
-          acc[nt][0] = c0[0];
-          acc[nt][1] = c0[1];
-          float c1[4] = {acc[nt + 1][0], acc[nt + 1][1], 0.f, 0.f};
-          mma(c1, pa0, 0u, pa2, 0u, bv[2], bv[3]);
-          acc[nt + 1][0] = c1[0];
-          acc[nt + 1][1] = c1[1];
+#pragma unroll
+          for (int x = 0; x < 2; ++x) {
+            // with MH = 1 the M rows past 8 (c[2], c[3]) take zeros and give zeros
+            float c[4] = {acc[nt + x][0], acc[nt + x][1], 0.f, 0.f};
+            if constexpr (MH > 1) {
+              c[2] = acc[nt + x][2];
+              c[3] = acc[nt + x][3];
+            }
+            mma(c, pa0, pa1, pa2, pa3, bv[2 * x], bv[2 * x + 1]);
+            acc[nt + x][0] = c[0];
+            acc[nt + x][1] = c[1];
+            if constexpr (MH > 1) {
+              acc[nt + x][2] = c[2];
+              acc[nt + x][3] = c[3];
+            }
+          }
         }
       }
     }
@@ -650,20 +703,24 @@ decode_tc_kernel(const bf16* __restrict__ q, KV kv, const int* __restrict__ vali
 
   // the quad's partial row sums, then merge the four warps' states (in the
   // ring, no longer read) and store rows or the partial
-  l_run += __shfl_xor_sync(0xffffffffu, l_run, 1);
-  l_run += __shfl_xor_sync(0xffffffffu, l_run, 2);
   float* m_s = reinterpret_cast<float*>(decode_smem);   // [kWarps][G]
   float* l_s = m_s + kWarps * G;                        // [kWarps][G]
   float* acc_s = l_s + kWarps * G;                      // [kWarps][G][D]
-  if (row < G) {
-    if (quad == 0) {
-      m_s[warp * G + row] = m_run;
-      l_s[warp * G + row] = l_run;
-    }
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      acc_s[(warp * G + row) * D + 8 * nt + 2 * quad] = acc[nt][0];
-      acc_s[(warp * G + row) * D + 8 * nt + 2 * quad + 1] = acc[nt][1];
+  for (int hh = 0; hh < MH; ++hh) {
+    l_run[hh] += __shfl_xor_sync(0xffffffffu, l_run[hh], 1);
+    l_run[hh] += __shfl_xor_sync(0xffffffffu, l_run[hh], 2);
+    const int r = row + 8 * hh;
+    if (r < G) {
+      if (quad == 0) {
+        m_s[warp * G + r] = m_run[hh];
+        l_s[warp * G + r] = l_run[hh];
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        acc_s[(warp * G + r) * D + 8 * nt + 2 * quad] = acc[nt][2 * hh];
+        acc_s[(warp * G + r) * D + 8 * nt + 2 * quad + 1] = acc[nt][2 * hh + 1];
+      }
     }
   }
   __syncthreads();
@@ -675,46 +732,57 @@ decode_tc_kernel(const bf16* __restrict__ q, KV kv, const int* __restrict__ vali
 
 // The split kernel for T and D on the cache `kv`, and with more than one
 // split the combine pass. DP: the float32 kernel's padded width (D rounded
-// up to a power of two).
+// up to a power of two); sub_len: the q-heads of a float32 CTA.
 template <typename T, int D, int DP, int G, typename KV>
 cudaError_t launch_decode(const void* q, const KV& kv, const int* valid_len, void* o, float* ws,
                           Strides2 qs, Strides2 os, int b, int hq, int hkv, int s_len,
-                          int split_len, int n_split, float scale, cudaStream_t stream) {
-  const dim3 grid(n_split, hkv, b);
+                          int split_len, int n_split, int sub_len, float scale,
+                          cudaStream_t stream) {
+  const int group = hq / hkv;
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     constexpr int smem = tc::TcCfg<D>::kSmem;
     static const cudaError_t attr = cudaFuncSetAttribute(
         tc::decode_tc_kernel<D, G, KV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (attr != cudaSuccess) return attr;
-    tc::decode_tc_kernel<D, G, KV><<<grid, kThreads, smem, stream>>>(
-        static_cast<const T*>(q), kv, valid_len, static_cast<T*>(o), ws, qs, os, hq / hkv, hq,
-        b, s_len, split_len, n_split, scale);
+    tc::decode_tc_kernel<D, G, KV><<<dim3(n_split, hkv, b), kThreads, smem, stream>>>(
+        static_cast<const T*>(q), kv, valid_len, static_cast<T*>(o), ws, qs, os, group, hq, b,
+        s_len, split_len, n_split, scale);
   } else {
     using R = Cfg<T, DP, G>;
     static const cudaError_t attr = cudaFuncSetAttribute(
         decode_split_kernel<T, D, DP, G, KV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         R::kSmem);
     if (attr != cudaSuccess) return attr;
-    decode_split_kernel<T, D, DP, G, KV><<<grid, kThreads, R::kSmem, stream>>>(
-        static_cast<const T*>(q), kv, valid_len, static_cast<T*>(o), ws, qs, os, hq / hkv, hq,
-        b, s_len, split_len, n_split, scale);
+    const int n_sub = (group + sub_len - 1) / sub_len;
+    decode_split_kernel<T, D, DP, G, KV><<<dim3(n_split, hkv * n_sub, b), kThreads, R::kSmem,
+                                           stream>>>(
+        static_cast<const T*>(q), kv, valid_len, static_cast<T*>(o), ws, qs, os, group, sub_len,
+        hq, b, s_len, split_len, n_split, scale);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return err;
   return splitkv::launch_combine<T>(ws, o, os.b, os.h, b, hq, n_split, D, stream);
 }
 
-// G is the group size rounded up to a power of two: the q-heads past the
-// real group are zeros that are never stored.
+// G is the q-heads a CTA holds rounded up to a power of two: the q-heads past
+// them are zeros that are never stored. bf16 holds the whole group (up to
+// 16); float32 at most kMaxF32Heads, a larger group going out in equal
+// sub-groups (10 as 5 + 5, 16 as 8 + 8).
 template <typename T, int D, int DP, typename KV>
 cudaError_t dispatch_group(const void* q, const KV& kv, const int* vl, void* o, float* ws,
                            Strides2 qs, Strides2 os, int b, int hq, int hkv, int s_len,
                            int split_len, int n_split, float scale, cudaStream_t s) {
   const int group = hq / hkv;
-  if (group == 1) return launch_decode<T, D, DP, 1>(q, kv, vl, o, ws, qs, os, b, hq, hkv, s_len, split_len, n_split, scale, s);
-  if (group == 2) return launch_decode<T, D, DP, 2>(q, kv, vl, o, ws, qs, os, b, hq, hkv, s_len, split_len, n_split, scale, s);
-  if (group <= 4) return launch_decode<T, D, DP, 4>(q, kv, vl, o, ws, qs, os, b, hq, hkv, s_len, split_len, n_split, scale, s);
-  if (group <= 8) return launch_decode<T, D, DP, 8>(q, kv, vl, o, ws, qs, os, b, hq, hkv, s_len, split_len, n_split, scale, s);
+  if (group > kMaxGroup) return cudaErrorInvalidValue;
+  constexpr bool f32 = std::is_same<T, float>::value;
+  const int n_sub = f32 ? (group + kMaxF32Heads - 1) / kMaxF32Heads : 1;
+  const int heads = (group + n_sub - 1) / n_sub;
+  if (heads == 1) return launch_decode<T, D, DP, 1>(q, kv, vl, o, ws, qs, os, b, hq, hkv, s_len, split_len, n_split, heads, scale, s);
+  if (heads == 2) return launch_decode<T, D, DP, 2>(q, kv, vl, o, ws, qs, os, b, hq, hkv, s_len, split_len, n_split, heads, scale, s);
+  if (heads <= 4) return launch_decode<T, D, DP, 4>(q, kv, vl, o, ws, qs, os, b, hq, hkv, s_len, split_len, n_split, heads, scale, s);
+  if (heads <= 8) return launch_decode<T, D, DP, 8>(q, kv, vl, o, ws, qs, os, b, hq, hkv, s_len, split_len, n_split, heads, scale, s);
+  if constexpr (!f32)
+    return launch_decode<T, D, DP, 16>(q, kv, vl, o, ws, qs, os, b, hq, hkv, s_len, split_len, n_split, heads, scale, s);
   return cudaErrorInvalidValue;
 }
 

@@ -18,7 +18,18 @@ from repro_torch.kernels.flash_attention import (DTYPES, check_aligned,
 from repro_torch.kernels.ref import decode_attention_ref, split_plan
 
 HEAD_DIMS = (64, 128, 256)   # the dense entry's instantiations
-MAX_GROUP = 8     # q-heads per kv-head that one CTA holds in registers
+# q-heads per kv-head: the M rows of the bf16 kernel's one mma tile (the
+# float32 kernel splits a group above 8 across two CTAs)
+MAX_GROUP = 16
+
+
+def check_group(hq: int, hkv: int) -> None:
+    """Raise unless ``hkv`` divides ``hq`` with at most MAX_GROUP q-heads
+    per kv-head, the groups the decode kernels take (checked on every
+    device, so that the CPU's plain version keeps the card's contract)."""
+    if hkv <= 0 or hq % hkv or hq // hkv > MAX_GROUP:
+        raise ValueError(f"q heads {hq} per kv heads {hkv}: the group must "
+                         f"divide and be at most {MAX_GROUP}")
 
 
 def valid_lengths(valid_len, b: int, device) -> torch.Tensor:
@@ -65,6 +76,7 @@ def decode_attention(q, k, v, valid_len, *, scale: float = 1.0):
     card k and v are read as 16-byte vectors, so their pointers and strides
     must be 16-byte aligned.
     """
+    check_group(q.shape[1], k.shape[1])
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, valid_len, scale=scale)
     if q.device.type != "cuda":
@@ -76,9 +88,6 @@ def decode_attention(q, k, v, valid_len, *, scale: float = 1.0):
     hkv, s = k.shape[1], k.shape[2]
     if d not in HEAD_DIMS:
         raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
-    if hq % hkv or hq // hkv > MAX_GROUP:
-        raise ValueError(f"q heads {hq} per kv heads {hkv}: the group must "
-                         f"divide and be at most {MAX_GROUP}")
     if b == 0 or s == 0:
         raise ValueError("empty attention")
     for name, x in (("q", q), ("k", k), ("v", v)):

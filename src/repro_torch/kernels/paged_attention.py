@@ -12,7 +12,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.decode_attention import (MAX_GROUP, split_workspace,
+from repro_torch.kernels.decode_attention import (check_group,
+                                                  split_workspace,
                                                   valid_lengths)
 from repro_torch.kernels.flash_attention import (DTYPES, check_aligned,
                                                  check_operand)
@@ -37,6 +38,7 @@ def paged_attention(q, k_pages, v_pages, block_tables, valid_len, *,
     of one device round trip; a caller whose tables hold only ids from the
     pool's own allocator (a ``PagedKVCache``'s) may pass False.
     """
+    check_group(q.shape[1], k_pages.shape[1])
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pages, v_pages, block_tables,
                                    valid_len, scale=scale)
@@ -50,9 +52,6 @@ def paged_attention(q, k_pages, v_pages, block_tables, valid_len, *,
                          f"{tuple(v_pages.shape)} do not match")
     if d not in HEAD_DIMS:
         raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
-    if hq % hkv or hq // hkv > MAX_GROUP:
-        raise ValueError(f"q heads {hq} per kv heads {hkv}: the group must "
-                         f"divide and be at most {MAX_GROUP}")
     for name, x in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
         check_operand(name, x, q.dtype, q.device)
     check_aligned("k_pages", k_pages)

@@ -19,9 +19,11 @@ the dense `max_batch x max_seq` reservation; evicted requests keep their
 prefill. `--arch mamba2-2.7b` serves the Mamba-2 family (its prefill runs
 the SSD-diagonal kernel on the card), `--arch deepseek-moe-16b` (and
 `mixtral-8x7b --reduced`, whose 32 layers do not fit one card) the MoE
-family and `--arch minicpm3-4b` the MLA family (its prefill runs the flash
-kernel at head_dim 96); `--prompt-len LO HI` draws the prompt lengths from
-[LO, HI).
+family, `--arch minicpm3-4b` the MLA family (its prefill runs the flash
+kernel at head_dim 96), `--arch recurrentgemma-2b` the RG-LRU hybrid (its
+attention layers decode at 10 q-heads a kv-head) and `--arch qwen2-vl-2b`
+the M-RoPE family (text only: the launcher passes no vision embeddings);
+`--prompt-len LO HI` draws the prompt lengths from [LO, HI).
 """
 from __future__ import annotations
 

@@ -5,7 +5,9 @@ leaves) along a leading ``n_superblocks`` axis: ``{"head": (...), "sb":
 (spec_0, spec_1, ...), "tail": (...)}``. The port keeps one dict per layer
 in execution order. These functions take the JAX trees as numpy arrays
 (``jax.tree.map(np.asarray, tree)``), so this module needs no JAX, and
-unstack them onto `device`.
+unstack them onto `device`. Every leaf keeps its dtype: the float32 leaves
+of a bf16 tree (norm scales, the RG-LRU gates and ``lam``, the recurrent
+state ``h``) stay float32.
 """
 from __future__ import annotations
 
@@ -56,8 +58,9 @@ def params_from_jax(jparams, cfg: ModelConfig, device=None):
         "final_norm": {"scale": to_tensor(jparams["final_norm"]["scale"],
                                           dev)},
     }
-    if "unembed" in jparams:
-        params["unembed"] = to_tensor(jparams["unembed"], dev)
+    for key in ("unembed", "vision_proj"):
+        if key in jparams:
+            params[key] = to_tensor(jparams[key], dev)
     return params
 
 

@@ -6,8 +6,8 @@ windows and rolling KV caches (keys are cached after rotation, so slot
 order does not matter); MLA keeps the compressed latent cache. Prefill
 attention (MLA's included) runs on the flash kernel and decode on the
 decode kernel when the tensors lie on the card; MLA decode is latent matrix
-products, as in the JAX package. M-RoPE, cross attention and
-context-parallel decode are not ported yet.
+products, as in the JAX package. Cross attention and context-parallel
+decode are not ported yet.
 """
 from __future__ import annotations
 
@@ -52,7 +52,7 @@ def rmsnorm(p, x, eps: float = 1e-6):
 
 
 # ---------------------------------------------------------------------------
-# RoPE (split-half convention)
+# RoPE (split-half convention) and M-RoPE
 # ---------------------------------------------------------------------------
 
 
@@ -67,6 +67,34 @@ def apply_rope(x, positions, theta: float):
     d = x.shape[-1]
     freqs = rope_freqs(d, theta, x.device)                # (d/2,)
     ang = positions[..., None].float() * freqs            # (B, S, d/2)
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# M-RoPE (Qwen2-VL): the head_dim/2 frequency slots are split into temporal,
+# height and width sections, each rotated by its own position stream.
+MROPE_SECTIONS = (2, 1, 1)   # relative split of the d/2 freq slots (t, h, w)
+
+
+def apply_mrope(x, positions3, theta: float):
+    """x: (B, S, H, D); positions3: (3, B, S) integer (t, h, w)."""
+    d = x.shape[-1]
+    half = d // 2
+    freqs = rope_freqs(d, theta, x.device)                # (half,)
+    total = sum(MROPE_SECTIONS)
+    bounds = []
+    acc = 0
+    for s in MROPE_SECTIONS:
+        acc += int(round(half * s / total))
+        bounds.append(acc)
+    bounds[-1] = half
+    slot = torch.arange(half, device=x.device)
+    sec = (slot >= bounds[0]).long() + (slot >= bounds[1]).long()
+    # each frequency slot takes its section's stream: (half, B, S)
+    pos = positions3[sec].movedim(0, -1).float()           # (B, S, half)
+    ang = pos * freqs
     cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
@@ -166,7 +194,8 @@ def attention_layer(p, x, *, cfg: ModelConfig, mode: str, cache=None,
 
     mode: "train" | "prefill" | "decode". Returns (out, cache'). The cache
     tensors are updated in place (JAX builds new arrays): the caller's cache
-    dict is the one returned.
+    dict is the one returned. positions: (B, S), or the (3, B, S) M-RoPE
+    streams of a ``cfg.mrope`` model (rotated by `apply_mrope`).
     """
     ad = attn_dims(cfg)
     b, s, _ = x.shape
@@ -182,8 +211,9 @@ def attention_layer(p, x, *, cfg: ModelConfig, mode: str, cache=None,
             positions = positions.expand(b, s)
         else:
             positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    rope = apply_mrope if cfg.mrope and positions.ndim == 3 else apply_rope
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
 
     new_cache = None
     if mode == "train" or (cache is None and mode == "prefill"):

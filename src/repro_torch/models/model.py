@@ -1,8 +1,8 @@
 """Public model API: init / forward / prefill / decode, per config.
 
 Parameters are a plain dict: ``embed`` (V, D), ``layers`` (one dict per
-layer, in execution order), ``final_norm`` and, for untied models,
-``unembed``. ``init_params`` draws from a seeded ``torch.Generator`` with the
+layer, in execution order), ``final_norm``, for untied models ``unembed``
+and for VLMs ``vision_proj`` (D, D), the stub vision tower's projection. ``init_params`` draws from a seeded ``torch.Generator`` with the
 JAX package's distributions and scales (not its bits: ``convert.py`` carries
 JAX weights over when the two must agree).
 """
@@ -37,6 +37,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None):
         params["unembed"] = L.dense_init(
             gen, (cfg.vocab_size, cfg.d_model),
             scale=1.0 / math.sqrt(cfg.d_model), dtype=dt, device=dev)
+    if cfg.vision_tokens:
+        params["vision_proj"] = L.dense_init(
+            gen, (cfg.d_model, cfg.d_model), scale=0.02, dtype=dt,
+            device=dev)
     return params
 
 
@@ -52,6 +56,19 @@ def embed_tokens(params, tokens, cfg: ModelConfig):
         # embedding's own dtype
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
                              device=x.device)
+    return x
+
+
+def embed_inputs(params, batch, cfg: ModelConfig):
+    """Token embeddings; for a VLM given ``vision_embeds`` (B, n, D), the
+    first n positions take ``vision_embeds @ vision_proj`` instead (the
+    stub vision tower), as in the JAX package."""
+    x = embed_tokens(params, batch["tokens"], cfg)
+    if cfg.vision_tokens and "vision_embeds" in batch:
+        e, w = batch["vision_embeds"], params["vision_proj"]
+        dt = torch.promote_types(e.dtype, w.dtype)
+        v = e.to(dt) @ w.to(dt)
+        x = torch.cat([v.to(x.dtype), x[:, v.shape[1]:]], dim=1)
     return x
 
 
@@ -72,14 +89,15 @@ def lm_head(params, x, cfg: ModelConfig):
 
 def forward(params, batch, *, cfg: ModelConfig, mode: str = "train",
             cache=None, pos=None, moe_dispatch: str = "dense"):
-    """batch: {"tokens": (B, S) integer [, "positions": (B, S)]}.
+    """batch: {"tokens": (B, S) integer [, "positions": (B, S), or (3, B,
+    S) for M-RoPE] [, "vision_embeds": (B, n, D) for a VLM]}.
 
     Returns (logits (B, S, V) float32, cache'). The cache is updated in
     place. ``moe_dispatch`` picks the MoE layers' dispatch, "dense" or
     "capacity", as the JAX package's ``ParallelContext.moe_dispatch``. The
     MoE load-balance loss is left out until training is ported (serving
     ignores it, as the JAX engine does)."""
-    x = embed_tokens(params, batch["tokens"], cfg)
+    x = embed_inputs(params, batch, cfg)
     x, new_cache, _ = T.run_stack(params["layers"], x, cfg=cfg, mode=mode,
                                   cache=cache, pos=pos,
                                   positions=batch.get("positions"),
@@ -109,10 +127,17 @@ def prefill(params, batch, cache, *, cfg: ModelConfig):
 
 def decode_step(params, tokens, cache, pos, *, cfg: ModelConfig,
                 moe_dispatch: str = "dense"):
-    """One decode step. tokens: (B, 1); pos: int or (B,) current positions.
+    """One decode step. tokens: (B, 1); pos: int or (B,) current positions
+    (for M-RoPE all three streams take ``pos``, as in the JAX package).
 
     Returns (logits (B, V), cache')."""
-    logits, new_cache = forward(params, {"tokens": tokens}, cfg=cfg,
+    batch = {"tokens": tokens}
+    if cfg.mrope:
+        b = tokens.shape[0]
+        batch["positions"] = torch.as_tensor(
+            pos, dtype=torch.int32, device=tokens.device).reshape(
+                1, -1, 1).expand(3, b, 1)
+    logits, new_cache = forward(params, batch, cfg=cfg,
                                 mode="decode", cache=cache, pos=pos,
                                 moe_dispatch=moe_dispatch)
     return logits[:, -1], new_cache

@@ -1,15 +1,19 @@
-"""Block-program transformer assembly (dense, MoE, MLA and Mamba-2 families).
+"""Block-program transformer assembly (dense, MoE, MLA, Mamba-2, RG-LRU
+hybrid and M-RoPE families).
 
 An architecture is a *block program*: optional leading ``head`` layers, a
 repeating ``superblock`` and an optional ``tail`` (e.g. gemma3's 5 local :
 1 global superblock, gemma3-27b's 62 = 10*6 + 2 layers, deepseek-moe's one
 dense-MLP head layer before 27 MoE layers, mamba2's single ssm layer 64
-times). The JAX package scans stacked superblock parameters; the port keeps
-one parameter dict and one cache dict per layer, in execution order, and
-runs them in a Python loop. Cache leaves are batch-first: attention (B, S,
-Hkv, D) ``k``/``v``, MLA (B, S, kv_lora_rank) ``ckv`` and (B, S,
+times, recurrentgemma's (rec, rec, attn(window)) superblock 8 times and a
+(rec, rec) tail). M-RoPE (qwen2-vl) changes only the rotary embedding, not
+the program. The JAX package scans stacked superblock parameters; the port
+keeps one parameter dict and one cache dict per layer, in execution order,
+and runs them in a Python loop. Cache leaves are batch-first: attention (B,
+S, Hkv, D) ``k``/``v``, MLA (B, S, kv_lora_rank) ``ckv`` and (B, S,
 qk_rope_head_dim) ``krope``, ssm (B, H, P, N) ``state`` and (B, d_conv - 1,
-C) ``conv``.
+C) ``conv``, rec (B, d_rnn) float32 ``h`` and (B, d_conv - 1, d_rnn)
+``conv``.
 """
 from __future__ import annotations
 
@@ -21,18 +25,20 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
+from repro_torch.models import rglru as RG
 from repro_torch.models import ssm as SSM
 
-NOT_PORTED = ("is not ported yet (ROADMAP.md §1: the RG-LRU, M-RoPE and "
-              "encoder-decoder families)")
+NOT_PORTED = ("is not ported yet (ROADMAP.md §1: the encoder-decoder "
+              "family)")
 
 
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
-    """An attention (``attn``), latent-attention (``mla``) or Mamba-2
-    (``ssm``) layer, with a routed-expert MLP where ``moe``; the JAX
-    package's other kinds (rec, cross) are not ported yet."""
-    kind: str = "attn"        # attn | mla | ssm
+    """An attention (``attn``), latent-attention (``mla``), Mamba-2
+    (``ssm``) or RG-LRU recurrent (``rec``) layer, with a routed-expert MLP
+    where ``moe``; the JAX package's cross-attention layers (``cross``) are
+    not ported yet."""
+    kind: str = "attn"        # attn | mla | ssm | rec
     window: int = 0           # 0 -> full attention
     moe: bool = False
 
@@ -56,12 +62,20 @@ class BlockProgram:
 
 
 def block_program(cfg: ModelConfig) -> BlockProgram:
-    """The block program of a dense, MoE, MLA or Mamba-2 model, as the JAX
-    package builds it."""
+    """The block program of a dense, MoE, MLA, Mamba-2, RG-LRU hybrid or
+    M-RoPE model, as the JAX package builds it; an encoder-decoder model
+    raises."""
     if cfg.family == "ssm":
         return BlockProgram((), (LayerSpec("ssm"),), cfg.n_layers, ())
-    if cfg.rglru is not None or cfg.enc_dec or cfg.mrope:
+    if cfg.enc_dec:
         raise NotImplementedError(f"{cfg.arch_id} ({cfg.family}) {NOT_PORTED}")
+    if cfg.rglru is not None:
+        pat = tuple(
+            LayerSpec("rec") if kind == "rec"
+            else LayerSpec("attn", window=cfg.sliding_window)
+            for kind in cfg.rglru.block_pattern)
+        n_sb = cfg.n_layers // len(pat)
+        return BlockProgram((), pat, n_sb, pat[:cfg.n_layers - n_sb * len(pat)])
     kind = "mla" if cfg.mla is not None else "attn"
     if cfg.local_global_pattern != (0, 0):
         nl, ng = cfg.local_global_pattern
@@ -96,6 +110,8 @@ def init_layer(gen, spec: LayerSpec, cfg: ModelConfig, device=None):
         p["mix"] = L.init_attention(gen, cfg, device)
     elif spec.kind == "mla":
         p["mix"] = L.init_mla(gen, cfg, device)
+    elif spec.kind == "rec":
+        p["mix"] = RG.init_rglru(gen, cfg, device)
     else:
         raise ValueError(spec.kind)
     p["norm2"] = L.init_rmsnorm(d, device)
@@ -114,6 +130,8 @@ def init_layer_cache(spec: LayerSpec, cfg: ModelConfig, batch: int,
     if spec.kind == "mla":
         return L.init_mla_cache(cfg, batch, max_seq, dtype=dtype,
                                 device=device)
+    if spec.kind == "rec":
+        return RG.init_rglru_cache(cfg, batch, dtype=dtype, device=device)
     if spec.kind != "attn":
         raise ValueError(spec.kind)
     return L.init_kv_cache(cfg, batch, max_seq, window=spec.window,
@@ -134,6 +152,9 @@ def apply_layer(spec: LayerSpec, p, x, *, cfg: ModelConfig, mode: str,
         mix, new_cache = L.mla_layer(p["mix"], h, cfg=cfg, mode=mode,
                                      cache=cache, pos=pos,
                                      positions=positions)
+    elif spec.kind == "rec":
+        mix, new_cache = RG.rglru_layer(p["mix"], h, cfg=cfg, mode=mode,
+                                        cache=cache)
     else:
         mix, new_cache = L.attention_layer(
             p["mix"], h, cfg=cfg, mode=mode, cache=cache, pos=pos,

@@ -20,7 +20,11 @@ the prefix index) and read at resume.
 
 On the card, prefill attention runs on the flash kernel, every decode step
 of an attention layer on the decode kernel (an MLA layer decodes through
-latent matrix products), and a Mamba-2 prefill on the SSD-diagonal kernel.
+latent matrix products), and a Mamba-2 prefill on the SSD-diagonal kernel;
+an RG-LRU layer's recurrence is plain PyTorch. An M-RoPE model (qwen2-vl)
+prefills with three equal (3, 1, S) position streams, as the JAX engine
+does; recurrent states (Mamba-2, RG-LRU) absorb the bucket padding, as in
+the JAX engine.
 """
 from __future__ import annotations
 
@@ -98,6 +102,9 @@ class ServingEngine:
         self.metrics = MetricsRegistry()
         self._compiled_shapes: set = set()
         self.n_prefills = 0       # prompts actually prefilled (resumes skip)
+        # model decode steps run: one a `step` that decodes, one a token of
+        # a prefix hit's suffix (not one of the JAX engine's stats keys)
+        self.n_decode_steps = 0
         self.n_prefix_hits = 0        # admissions that reused a shared prefix
         self.prefix_tokens_reused = 0  # prompt tokens those hits skipped
         # admissions that found the pool exhausted (the queue head waited,
@@ -247,6 +254,7 @@ class ServingEngine:
                     logits, one_cache = M.decode_step(
                         self.params, tok, one_cache, pos, cfg=self.cfg,
                         moe_dispatch=self.moe_dispatch)
+                    self.n_decode_steps += 1
                 last_logits = logits
                 self.n_prefix_hits += 1
                 self.prefix_tokens_reused += skip
@@ -254,8 +262,9 @@ class ServingEngine:
                 # prompts are right-padded to power-of-2 buckets, so the
                 # prefill shapes stay at log2(max_seq); attention slots
                 # >= plen hold padding K/V that decode overwrites before
-                # the position mask reaches them (an SSM's state absorbs
-                # the padding, as in the JAX engine)
+                # the position mask reaches them (a recurrent state,
+                # Mamba-2's or RG-LRU's, absorbs the padding, as in the
+                # JAX engine)
                 bucket = 1 << max(plen - 1, 1).bit_length()
                 bucket = min(bucket, self.max_seq)
                 padded = req.prompt + [0] * (bucket - plen)
@@ -263,11 +272,14 @@ class ServingEngine:
                                       device=self.device)
                 one_cache = M.init_cache(self.cfg, 1, self.max_seq,
                                          device=self.device)
+                batch = {"tokens": prompt}
+                if self.cfg.mrope:
+                    batch["positions"] = torch.arange(
+                        bucket, device=self.device).expand(3, 1, bucket)
                 self._note_compile("prefill", prompt.shape)
                 logits, one_cache = M.forward(
-                    self.params, {"tokens": prompt}, cfg=self.cfg,
-                    mode="prefill", cache=one_cache,
-                    moe_dispatch=self.moe_dispatch)
+                    self.params, batch, cfg=self.cfg, mode="prefill",
+                    cache=one_cache, moe_dispatch=self.moe_dispatch)
                 last_logits = logits[:, plen - 1]
             self.n_prefills += 1
             if self._sharing:
@@ -357,6 +369,7 @@ class ServingEngine:
         logits, self.cache = M.decode_step(self.params, tokens, self.cache,
                                            pos, cfg=self.cfg,
                                            moe_dispatch=self.moe_dispatch)
+        self.n_decode_steps += 1
         next_tokens = sample_tokens(logits, self.temperature,
                                     generator=self._gen).tolist()
         for slot in active:

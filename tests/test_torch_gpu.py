@@ -442,34 +442,44 @@ def test_flash_bf16_long_sum_of_small_p(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("hq,hkv,d", [
+    (8, 1, 128),
+    # 10 and 16 q-heads a kv-head (recurrentgemma-2b: 10 on 1 at D 256):
+    # bf16 fills both halves of the mma tile, float32 runs two sub-groups
+    (10, 1, 128), (10, 1, 256), (20, 2, 256), (16, 1, 128), (16, 1, 256),
+    (32, 2, 128),
+])
 @pytest.mark.parametrize("b", [1, 4, 32])
-def test_decode_split_boundaries_on_cuda(cuda, dtype, tol, b):
+def test_decode_split_boundaries_on_cuda(cuda, dtype, tol, b, hq, hkv, d):
     """Split-KV decode where the splits behave differently: valid_len 0
     (every split masked: the uniform mean), 1, a multiple of the split
-    length, one past it, S, and rows whose later splits are empty; the
-    plain split-KV version with the wrapper's own split rule agrees."""
+    length, one past it, S, and rows whose later splits are empty; one
+    launch counted a call; the plain split-KV version with the wrapper's
+    own split rule agrees."""
     from repro_torch.kernels.decode_attention import sm_count
-    hq, hkv, s, d = 8, 1, 1024, 128
+    s = 1024
     n_split, split_len = tref.split_plan(s, b * hkv, sm_count(0))
     assert n_split > 1
     edges = [0, 1, split_len, split_len + 1, s, split_len - 1, 2 * split_len,
              s - 1]
-    valid = [edges[i % len(edges)] for i in range(b)]
     dt = TORCH_DT[dtype]
     q = torch.from_numpy(_normal(59, b, hq, d)).to(cuda, dt)
     k = torch.from_numpy(_normal(60, b, hkv, s, d)).to(cuda, dt)
     v = torch.from_numpy(_normal(61, b, hkv, s, d)).to(cuda, dt)
-    vl = torch.tensor(valid, dtype=torch.int32, device=cuda)
-    before = decode_attention.launches
-    out = decode_attention(q, k, v, vl, scale=d ** -0.5)
-    torch.cuda.synchronize()
-    assert decode_attention.launches == before + 1   # one a call
-    ref = tref.decode_attention_ref(q, k, v, vl, scale=d ** -0.5)
-    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
-    split = tref.decode_attention_split_ref(q, k, v, vl, scale=d ** -0.5,
-                                            sms=sm_count(0))
-    torch.testing.assert_close(out.float(), split.float(), rtol=tol,
-                               atol=tol)
+    for k0 in range(0, len(edges), b):
+        valid = [edges[(i + k0) % len(edges)] for i in range(b)]
+        vl = torch.tensor(valid, dtype=torch.int32, device=cuda)
+        before = decode_attention.launches
+        out = decode_attention(q, k, v, vl, scale=d ** -0.5)
+        torch.cuda.synchronize()
+        assert decode_attention.launches == before + 1   # one a call
+        ref = tref.decode_attention_ref(q, k, v, vl, scale=d ** -0.5)
+        torch.testing.assert_close(out.float(), ref.float(), rtol=tol,
+                                   atol=tol)
+        split = tref.decode_attention_split_ref(q, k, v, vl, scale=d ** -0.5,
+                                                sms=sm_count(0))
+        torch.testing.assert_close(out.float(), split.float(), rtol=tol,
+                                   atol=tol)
 
 
 @pytest.mark.gpu
@@ -514,15 +524,17 @@ def _paged_pool(seed, b, hq, hkv, d, page, n_pages, dtype, cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("hq,d", [(8, 128), (10, 256), (16, 128)])
 @pytest.mark.parametrize("b", [1, 4, 32])
-def test_paged_split_boundaries_on_cuda(cuda, dtype, tol, b):
+def test_paged_split_boundaries_on_cuda(cuda, dtype, tol, b, hq, d):
     """Split-KV paged decode where splits and pages behave differently:
     valid_len 0 (every slot of the table, pad pages included: the uniform
     mean), 1, a split boundary and one past it, a page boundary and one
     past it, every slot, and rows whose later splits are empty; one launch
-    counted a call; the plain split-KV paged version agrees."""
+    counted a call; the plain split-KV paged version agrees; 8, 10 and 16
+    q-heads on one kv-head."""
     from repro_torch.kernels.decode_attention import sm_count
-    hq, hkv, d, page, n_pages = 8, 1, 128, 16, 64
+    hkv, page, n_pages = 1, 16, 64
     span = page * n_pages
     n_split, split_len = tref.split_plan(span, b * hkv, sm_count(0))
     assert n_split > 1
@@ -572,7 +584,8 @@ def test_paged_odd_head_dims_valid_zero_on_cuda(cuda, dtype, tol, d):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d,hq,hkv", [(64, 8, 2), (128, 16, 4), (256, 8, 1)])
+@pytest.mark.parametrize("d,hq,hkv", [(64, 8, 2), (128, 16, 4), (256, 8, 1),
+                                    (256, 10, 1), (128, 16, 1)])
 def test_paged_and_dense_routes_agree_on_cuda(cuda, dtype, d, hq, hkv):
     """The paged route and the dense route are one kernel with two row
     policies: on the same slots, laid out through a shuffled page table or
@@ -640,3 +653,75 @@ def test_ssd_diag_odd_shapes_on_cuda(cuda, b, s, h, p, n, chunk):
     assert ssd_diag.launches == before + 1
     torch.testing.assert_close(out, tref.ssd_diag_ref(*args, chunk=chunk),
                                rtol=2e-5, atol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# the RG-LRU hybrid (recurrentgemma-2b: 10 q-heads on 1 kv-head, D 256,
+# window 2048) and M-RoPE (qwen2-vl-2b: 12 on 2, D 128) at their full
+# widths' attention shapes
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,window,q_offset", [
+    (1, 10, 1, 256, 256, 256, 2048, 0),    # recurrentgemma-2b, bucket 256
+    (1, 10, 1, 37, 37, 256, 2048, 0),      # a ragged bucket
+    (1, 10, 1, 2500, 2500, 256, 2048, 0),  # past the window
+    (1, 10, 1, 40, 300, 256, 2048, 260),   # a prefix-hit suffix
+    (1, 12, 2, 256, 256, 128, 0, 0),       # qwen2-vl-2b, bucket 256
+    (1, 12, 2, 19, 19, 128, 0, 0),
+    (2, 12, 2, 1000, 1000, 128, 0, 0),
+])
+def test_flash_rglru_and_mrope_shapes_on_cuda(cuda, dtype, tol, b, hq, hkv,
+                                              sq, sk, d, window, q_offset):
+    dt = TORCH_DT[dtype]
+    q = torch.from_numpy(_normal(120, b, hq, sq, d)).to(cuda, dt)
+    k = torch.from_numpy(_normal(121, b, hkv, sk, d)).to(cuda, dt)
+    v = torch.from_numpy(_normal(122, b, hkv, sk, d)).to(cuda, dt)
+    out = flash_attention(q, k, v, window=window, q_offset=q_offset,
+                          scale=d ** -0.5)
+    torch.cuda.synchronize()
+    ref = tref.flash_attention_ref(q, k, v, window=window, q_offset=q_offset,
+                                   scale=d ** -0.5)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    assert _rms_ok(out, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "qwen2-vl-2b"])
+def test_rglru_and_mrope_engines_run_on_the_kernels(cuda, arch):
+    """Reduced float32 hybrid and M-RoPE engines on the card: the flash
+    kernel once an attention layer a prefill, the decode kernel once an
+    attention layer a step, and the CPU's greedy tokens."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serving import ServingEngine
+
+    cfg = dataclasses.replace(get_config(arch).reduced(
+        n_layers=3, d_model=128, vocab_size=512), dtype="float32")
+    params = init_params(cfg, device="cpu")
+    n_attn = cfg.attention_layer_count()
+    out = []
+    def to(tree, dev):
+        if isinstance(tree, dict):
+            return {k: to(v, dev) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to(v, dev) for v in tree]
+        return tree.to(dev)
+
+    for dev in (cuda, torch.device("cpu")):
+        eng = ServingEngine(cfg, to(params, dev), max_batch=3, max_seq=64,
+                            device=dev)
+        for i in range(4):
+            eng.submit(list(range(5, 12 + 3 * i)), max_new_tokens=5)
+        ops.reset_launches()
+        done = sorted(eng.run_until_idle(), key=lambda r: r.rid)
+        launches = ops.kernel_launches()
+        if dev.type == "cuda":
+            assert launches["flash_attention"] == 4 * n_attn
+            steps = launches["decode_attention"] // n_attn
+            assert steps > 0 and launches["decode_attention"] == steps * n_attn
+        out.append([r.generated for r in done])
+    assert out[0] == out[1]

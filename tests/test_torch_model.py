@@ -17,6 +17,7 @@ from repro.models import decode_step as jax_decode_step
 from repro.models import forward as jax_forward
 from repro.models import init_cache as jax_init_cache
 from repro.models import prefill as jax_prefill
+from repro.models.transformer import block_program as jax_block_program
 from repro_torch.models import (
     decode_step, forward, init_cache, init_params, prefill,
 )
@@ -181,11 +182,32 @@ def test_entry_points_default_to_cuda():
             init_cache(tcfg, 1, 8)
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "qwen2-vl-2b",
-                                  "whisper-base"])
+@pytest.mark.parametrize("arch", ["whisper-base"])
 def test_block_program_refuses_unported_families(arch):
-    """The dense, MoE, MLA and Mamba-2 families are ported; RG-LRU, M-RoPE
-    and encoder-decoder models raise rather than run a wrong program."""
+    """The dense, MoE, MLA, Mamba-2, RG-LRU hybrid and M-RoPE families are
+    ported; encoder-decoder models raise rather than run a wrong program."""
     _, tcfg = config_pair(arch)
     with pytest.raises(NotImplementedError, match="not ported"):
         block_program(tcfg)
+
+
+@pytest.mark.parametrize("arch,n_layers", [("recurrentgemma-2b", 3),
+                                           ("recurrentgemma-2b", 5),
+                                           ("qwen2-vl-2b", 2)])
+def test_block_program_matches_jax(arch, n_layers):
+    """The RG-LRU hybrid's (rec, rec, attn(window)) superblock with its
+    tail (at 5 layers: one superblock and (rec, rec)), and qwen2-vl's plain
+    attention stack: the JAX package's programs."""
+    jcfg, tcfg = config_pair(arch, n_layers=n_layers)
+    jprog, tprog = jax_block_program(jcfg), block_program(tcfg)
+
+    def specs(seq):
+        return [(s.kind, s.window, s.moe) for s in seq]
+
+    for part in ("head", "superblock", "tail"):
+        assert not any(s.cross for s in getattr(jprog, part))
+        assert specs(getattr(tprog, part)) == specs(getattr(jprog, part))
+    assert tprog.n_superblocks == jprog.n_superblocks
+    assert tprog.n_layers == jprog.n_layers == n_layers
+    if arch == "recurrentgemma-2b" and n_layers == 5:
+        assert specs(tprog.tail) == [("rec", 0, False)] * 2

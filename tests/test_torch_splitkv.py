@@ -17,7 +17,9 @@ from repro.kernels import ref as jref
 from repro.kernels.decode_attention import decode_attention as pallas_decode
 from repro.kernels.paged_attention import paged_attention as pallas_paged
 from repro_torch.kernels import ref
+from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import check_aligned
+from repro_torch.kernels.paged_attention import paged_attention
 
 DTYPES = [("float32", 2e-5), ("bfloat16", 2e-2)]
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -62,7 +64,19 @@ def _edges(length, s, b):
 @pytest.mark.parametrize("dtype,tol", DTYPES)
 @pytest.mark.parametrize("b", [1, 4, 32])
 def test_split_plain_matches_decode_and_pallas(dtype, tol, b):
-    hq, hkv, s, d = 4, 2, 512, 64
+    _check_dense_split(dtype, tol, b, 4, 2)
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("hq,hkv", [(10, 1), (20, 2), (16, 1)])
+def test_split_plain_at_large_groups_matches_pallas(dtype, tol, hq, hkv):
+    """10 and 16 q-heads per kv-head (recurrentgemma-2b has 10 on 1), which
+    the decode kernels take since the group limit is 16."""
+    _check_dense_split(dtype, tol, 4, hq, hkv)
+
+
+def _check_dense_split(dtype, tol, b, hq, hkv):
+    s, d = 512, 64
     n_split, length = ref.split_plan(s, b * hkv, 132)
     assert n_split > 1
     valid = _edges(length, s, b)
@@ -202,3 +216,39 @@ def test_paged_split_plain_matches_pallas(dtype, tol, b, page):
 def test_paged_split_plain_odd_head_dims(dtype, tol, d):
     """head_dims 48 and 80, which only the paged wrapper takes."""
     _check_paged_split(dtype, tol, 4, 4, 2, d, 16, seed=90)
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("hq", [10, 16])
+def test_paged_split_plain_at_large_groups(dtype, tol, hq):
+    """10 and 16 q-heads on one kv-head through a page table."""
+    _check_paged_split(dtype, tol, 4, hq, 1, 64, 16, seed=95)
+
+
+@pytest.mark.parametrize("hq,hkv", [(17, 1), (34, 2), (12, 8), (6, 4)])
+def test_wrappers_refuse_groups_they_cannot_take(hq, hkv):
+    """Both decode wrappers take every group that divides up to 16 and
+    raise above 16 or when the kv-heads do not divide the q-heads, on the
+    CPU as on the card."""
+    q = torch.zeros(2, hq, 64)
+    cache = torch.zeros(2, hkv, 32, 64)
+    pool = torch.zeros(4, hkv, 16, 64)
+    tables = torch.tensor([[0, 1], [2, 3]], dtype=torch.int32)
+    with pytest.raises(ValueError, match="at most 16"):
+        decode_attention(q, cache, cache, 5)
+    with pytest.raises(ValueError, match="at most 16"):
+        paged_attention(q, pool, pool, tables, 5)
+
+
+@pytest.mark.parametrize("g", range(1, 17))
+def test_wrappers_take_every_group_up_to_16(g):
+    q = torch.from_numpy(_normal(96, 2, g, 64))
+    cache = torch.from_numpy(_normal(97, 2, 1, 32, 64))
+    out = decode_attention(q, cache, cache, 5)
+    assert out.shape == (2, g, 64)
+    torch.testing.assert_close(
+        out, ref.decode_attention_ref(q, cache, cache, 5))
+    pool = cache.reshape(4, 1, 16, 64)
+    tables = torch.tensor([[0, 1], [2, 3]], dtype=torch.int32)
+    torch.testing.assert_close(paged_attention(q, pool, pool, tables, 5),
+                               out)
