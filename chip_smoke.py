@@ -57,11 +57,27 @@ fails:
    12 q-heads on 2), bf16, served through the launcher and freed one after
    the other: flash once an attention layer a prefill, decode once an
    attention layer a decode step; the reduced float32 engines of both (and
-   a paged recurrentgemma one) are in phases 4 and 5.
+   a paged recurrentgemma one) are in phases 4 and 5;
+10. whisper / training: full-width whisper-base (6 encoder and 6 decoder
+   layers, bf16) at the model level (no engine serves an encoder-decoder
+   model): 4 requests of 4-23 tokens with 1500 random frames each,
+   prefilled and then decoded 16 greedy steps together, the flash kernel
+   non-causal in the encoder and the cross attention (18 launches a
+   prefill, 6 a step) and the decode kernel 6 a step; a reduced float32
+   whisper card against CPU; then full-width gemma-2b trained 4 steps
+   through `repro_torch.launch.train` (batch 4 x 256 tokens, bf16; the
+   step-0 loss near ln V, every loss and gradient norm finite, the
+   parameters moved; ms a step, tokens a second, peak memory, 18 flash
+   launches a step), one train step of full-width whisper-base, and three
+   train steps (one and two microbatches) of a reduced float32 model of
+   each family, card against CPU. Phase 3 also holds the non-causal
+   flash rows at whisper's shapes, the kernel's logsumexp output and
+   FlashAttentionFn's gradients at gemma-2b's training shape.
 
-`--profile` also traces the warm engine runs of phases 4, 5, 8 and 9 with
-torch.profiler (device time by kernel and the device's busy share of the
-wall time).
+`--profile` also traces the warm engine runs of phases 4, 5, 8 and 9 and
+one more full-width gemma-2b train step in phase 10 with torch.profiler
+(device time by kernel and the device's busy share of the wall time; for
+the train step also the device time of its gradient and AdamW halves).
 
 Before the last line it prints one JSON object with a row per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -81,6 +97,9 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12,   # dense tensor-core rate
                   "tf32": 494.7e12,     # dense TF32 tensor-core rate
                   "float32": 67e12}     # float32 outside the tensor cores
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# the flash kernel's logsumexp against the plain one: bf16 scores come from
+# the tensor cores and exp2 in hardware, to about 1e-5 of their size
+LSE_TOL = {"float32": 2e-5, "bfloat16": 1e-3}
 REL_RMS = 0.05                     # max error / RMS of the plain output
 # the SSD kernel against the plain version on the CPU, summed in float64:
 # max error / RMS read 3.3e-6 to 2.2e-4 on the H100 against a float32 CPU
@@ -195,14 +214,15 @@ def visible_pairs(sq, sk, window, q_offset) -> int:
 # ---------------------------------------------------------------------------
 
 
-def sdpa(q, k, v, mask, scale):
+def sdpa(q, k, v, mask, scale, causal: bool = True):
     """One `scaled_dot_product_attention` call on the same inputs, GQA by
-    `enable_gqa`. `mask=None` means plain causal attention: `is_causal`
-    then leaves PyTorch free to pick its fastest (flash) backend."""
+    `enable_gqa`. `mask=None` means plain causal attention (or none where
+    not `causal`): PyTorch is then free to pick its fastest (flash)
+    backend."""
     import torch.nn.functional as F
     if mask is None:
         return lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, scale=scale, enable_gqa=True)
+            q, k, v, is_causal=causal, scale=scale, enable_gqa=True)
     return lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=mask, scale=scale, enable_gqa=True)
 
@@ -223,46 +243,151 @@ def close(out, plain, dtype):
     return err, rel, ok
 
 
-def check_flash(case, dev):
+def flash_inputs(case, dev, seed=0):
+    import torch
+    b, hq, hkv, sq, sk, d, _, _, dtype, _ = case
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(b, h, s, d, generator=gen, device=dev).to(dt)
+            for h, s in ((hq, sq), (hkv, sk), (hkv, sk))]
+
+
+def flash_mask(sq, sk, window, q_offset, causal, dev):
+    """The boolean mask SDPA needs, or None where `is_causal` (or no mask)
+    says it."""
+    import torch
+    if not causal or (window == 0 and q_offset == 0 and sq == sk):
+        return None
+    qi = torch.arange(sq, device=dev)[:, None] + q_offset
+    kj = torch.arange(sk, device=dev)[None, :]
+    mask = kj <= qi
+    if window > 0:
+        mask = mask & (kj > qi - window)
+    return mask
+
+
+def check_flash(case, dev, causal: bool = True, lse: bool = False):
+    """A flash row: the kernel (with `lse`, also its logsumexp output,
+    held against the plain logsumexp) against the plain version."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
     b, hq, hkv, sq, sk, d, window, q_offset, dtype, label = case
-    dt = getattr(torch, dtype)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    q = torch.randn(b, hq, sq, d, generator=gen, device=dev).to(dt)
-    k = torch.randn(b, hkv, sk, d, generator=gen, device=dev).to(dt)
-    v = torch.randn(b, hkv, sk, d, generator=gen, device=dev).to(dt)
-    scale = d ** -0.5
-    out = flash_attention(q, k, v, window=window, q_offset=q_offset,
-                          scale=scale)
+    q, k, v = flash_inputs(case, dev)
+    kw = dict(causal=causal, window=window, q_offset=q_offset,
+              scale=d ** -0.5)
+    got = flash_attention(q, k, v, return_lse=lse, **kw)
     torch.cuda.synchronize()
-    plain = ref.flash_attention_ref(q, k, v, window=window, q_offset=q_offset,
-                                    scale=scale)
-    err, rel, ok = close(out, plain, dtype)
-    mask = None
-    if window > 0 or q_offset > 0 or sq != sk:
-        qi = torch.arange(sq, device=dev)[:, None] + q_offset
-        kj = torch.arange(sk, device=dev)[None, :]
-        mask = kj <= qi
-        if window > 0:
-            mask = mask & (kj > qi - window)
+    plain_fn = ref.flash_attention_lse_ref if lse else ref.flash_attention_ref
+    plain = plain_fn(q, k, v, **kw)
+    extra = {}
+    if lse:
+        (got, got_lse), (plain, plain_lse) = got, plain
+        lse_err = (got_lse - plain_lse).abs().max().item()
+        tol = LSE_TOL[dtype]
+        extra = dict(lse_err=lse_err, lse_ok=bool(torch.allclose(
+            got_lse, plain_lse, rtol=tol, atol=tol)))
+    err, rel, ok = close(got, plain, dtype)
+    mask = flash_mask(sq, sk, window, q_offset, causal, dev)
     elem = q.element_size()
-    n_bytes = elem * (2 * b * hq * sq * d + 2 * b * hkv * sk * d)
-    n_ops = 4.0 * d * b * hq * visible_pairs(sq, sk, window, q_offset)
+    n_bytes = elem * (2 * b * hq * sq * d + 2 * b * hkv * sk * d) \
+        + (4 * b * hq * sq if lse else 0)
+    pairs = visible_pairs(sq, sk, window, q_offset) if causal else sq * sk
+    n_ops = 4.0 * d * b * hq * pairs
+    bms, by = bound_ms(n_bytes, n_ops, dtype)
+
+    def fn():
+        return flash_attention(q, k, v, return_lse=lse, **kw)
+
+    return dict(
+        kernel="flash_attention", label=label, shape=dict(
+            b=b, hq=hq, hkv=hkv, sq=sq, sk=sk, d=d, window=window,
+            q_offset=q_offset, causal=causal), dtype=dtype, max_abs_err=err,
+        err_rms=rel, ok=ok and extra.get("lse_ok", True), **extra,
+        ms=time_ms(fn), fn=fn,
+        plain_ms=time_ms(lambda: plain_fn(q, k, v, **kw)),
+        library_ms=time_ms(sdpa(q, k, v, mask, d ** -0.5, causal)),
+        bound_ms=bms, bound_by=by)
+
+
+def grad_close(got, want, dtype):
+    """`close` for a gradient, less one output ulp an element in bf16: both
+    sides are summed in float32 and rounded once, and a gradient's largest
+    values are over ten times its RMS (the first causal rows see few keys),
+    so one bf16 rounding that falls the other way is ~9% of the RMS by
+    itself. What is left beyond that ulp is held to REL_RMS."""
+    import torch
+    if dtype != "bfloat16":
+        return close(got, want, dtype)
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    ulp = torch.ldexp(torch.ones_like(want), torch.frexp(want).exponent - 8)
+    rms = want.pow(2).mean().sqrt().item()
+    rel = (err - ulp).clamp(min=0).max().item() / max(rms, 1e-30)
+    ok = torch.allclose(got, want, rtol=TOL[dtype], atol=TOL[dtype]) \
+        and rel <= REL_RMS and rms > 0
+    return err.max().item(), rel, ok
+
+
+def check_flash_grad(case, dev):
+    """FlashAttentionFn forward + backward (the kernel writing its
+    logsumexp, then the FlashAttention-2 backward in plain PyTorch) against
+    autograd through the plain version, and beside SDPA's forward +
+    backward, a yardstick the port never calls. `ms` is forward +
+    backward; `bwd_ms` the backward alone."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (
+        FlashAttentionFn, flash_attention, flash_backward,
+    )
+    b, hq, hkv, sq, sk, d, window, q_offset, dtype, label = case
+    causal, scale = True, d ** -0.5
+    ins = [t.requires_grad_(True) for t in flash_inputs(case, dev, seed=6)]
+    dout = torch.randn(b, hq, sq, d, device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(7)
+                       ).to(ins[0].dtype)
+    kw = dict(causal=causal, window=window, q_offset=q_offset, scale=scale)
+
+    def fwd_bwd():
+        out = FlashAttentionFn.apply(*ins, causal, window, q_offset, scale)
+        return torch.autograd.grad(out, ins, dout)
+
+    def plain_fwd_bwd():
+        out = ref.flash_attention_ref(*ins, **kw)
+        return torch.autograd.grad(out, ins, dout)
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(*ins, is_causal=True,
+                                             scale=scale, enable_gqa=True)
+        return torch.autograd.grad(out, ins, dout)
+
+    got, want = fwd_bwd(), plain_fwd_bwd()
+    torch.cuda.synchronize()
+    checks = [grad_close(g, w, dtype) for g, w in zip(got, want, strict=True)]
+    with torch.no_grad():
+        _, lse = flash_attention(*ins, return_lse=True, **kw)
+    pairs = visible_pairs(sq, sk, window, q_offset)
+    elem = ins[0].element_size()
+    # forward: q, k, v in, out and lse out; backward: q, k, v, dout and lse
+    # in, dq, dk, dv out. Operations: the forward's two products, the
+    # backward's five (s recomputed, dv, dp, dq, dk)
+    n_bytes = elem * (2 * b * hq * sq * d + 2 * b * hkv * sk * d) \
+        + elem * (2 * b * hq * sq * d + 2 * b * hkv * sk * d) \
+        + elem * (b * hq * sq * d + 2 * b * hkv * sk * d) + 8 * b * hq * sq
+    n_ops = 14.0 * d * b * hq * pairs
     bms, by = bound_ms(n_bytes, n_ops, dtype)
     return dict(
         kernel="flash_attention", label=label, shape=dict(
             b=b, hq=hq, hkv=hkv, sq=sq, sk=sk, d=d, window=window,
-            q_offset=q_offset), dtype=dtype, max_abs_err=err, err_rms=rel,
-        ok=ok,
-        ms=time_ms(lambda: flash_attention(q, k, v, window=window,
-                                           q_offset=q_offset, scale=scale)),
-        fn=lambda: flash_attention(q, k, v, window=window, q_offset=q_offset,
-                                   scale=scale),
-        plain_ms=time_ms(lambda: ref.flash_attention_ref(
-            q, k, v, window=window, q_offset=q_offset, scale=scale)),
-        library_ms=time_ms(sdpa(q, k, v, mask, scale)),
+            q_offset=q_offset, causal=causal), dtype=dtype,
+        max_abs_err=max(c[0] for c in checks),
+        err_rms=max(c[1] for c in checks), ok=all(c[2] for c in checks),
+        ms=time_ms(fwd_bwd, iters=10), fn=fwd_bwd,
+        bwd_ms=time_ms(lambda: flash_backward(*ins, lse, dout, **kw),
+                       iters=10),
+        plain_ms=time_ms(plain_fwd_bwd, iters=5),
+        library_ms=time_ms(sdpa_fwd_bwd, iters=10),
         bound_ms=bms, bound_by=by)
 
 
@@ -485,6 +610,33 @@ FLASH_CASES = [
     (1, 12, 2, 32, 32, 128, 0, 0, "float32", "qwen2-vl-2b heads, f32"),
     (1, 12, 2, 2048, 2048, 128, 0, 0, "bfloat16", "long: qwen2-vl-2b heads"),
 ]
+# whisper-base (8 q-heads on 8 kv-heads, D 64, 1500 frames): the encoder
+# and cross attention, bidirectional
+NONCAUSAL_FLASH_CASES = [
+    (4, 8, 8, 1500, 1500, 64, 0, 0, "bfloat16",
+     "path: whisper-base encoder, B4 1500 frames"),
+    (4, 8, 8, 1500, 1500, 64, 0, 0, "float32", "whisper-base encoder, f32"),
+    (4, 8, 8, 1, 1500, 64, 0, 0, "bfloat16", "path: whisper-base cross, decode"),
+    (4, 8, 8, 1, 1500, 64, 0, 0, "float32", "whisper-base cross decode, f32"),
+    (4, 8, 8, 32, 1500, 64, 0, 0, "bfloat16", "whisper-base cross, Sq 32"),
+    (4, 8, 8, 32, 1500, 64, 0, 0, "float32", "whisper-base cross Sq 32, f32"),
+]
+# the kernel writing its logsumexp (for the backward), causal and not
+LSE_CASES = [
+    ((1, 8, 1, 32, 32, 256, 0, 0, "bfloat16", "lse: gemma-2b path"), True),
+    ((1, 8, 1, 32, 32, 256, 0, 0, "float32", "lse: gemma-2b path, f32"), True),
+    ((4, 8, 1, 256, 256, 256, 0, 0, "bfloat16", "lse: gemma-2b training"),
+     True),
+    ((4, 8, 8, 1500, 1500, 64, 0, 0, "bfloat16", "lse: whisper-base encoder"),
+     False),
+    ((4, 8, 8, 1500, 1500, 64, 0, 0, "float32",
+      "lse: whisper-base encoder, f32"), False),
+]
+# FlashAttentionFn's gradients at gemma-2b's training shape (B4, 256 tokens)
+GRAD_CASES = [
+    (4, 8, 1, 256, 256, 256, 0, 0, "bfloat16", "grad: gemma-2b training"),
+    (4, 8, 1, 256, 256, 256, 0, 0, "float32", "grad: gemma-2b training, f32"),
+]
 # (hq, hkv, s, d, valid_len per row, dtype, label)
 DECODE_CASES = [
     (8, 1, 256, 256, [20, 27, 33, 41], "bfloat16", "path: gemma-2b decode"),
@@ -603,6 +755,15 @@ NEW_ENGINES = [
     ("recurrentgemma-2b", ["--paged"], None),
     ("qwen2-vl-2b", [], None),
 ]
+# phase 10: whisper-base's 4 requests (prompt lengths) and decode steps;
+# gemma-2b trained through the launcher; the families trained reduced
+WHISPER_PROMPTS = (4, 9, 16, 23)
+WHISPER_STEPS = 16
+TRAIN_ARGS = ["--arch", "gemma-2b", "--steps", "4", "--batch", "4", "--seq",
+              "256", "--device", "cuda", "--log-every", "1"]
+TRAIN_ARCHS = ["gemma-2b", "gemma3-12b", "mamba2-2.7b", "deepseek-moe-16b",
+               "mixtral-8x7b", "minicpm3-4b", "recurrentgemma-2b",
+               "qwen2-vl-2b", "whisper-base"]
 
 
 def small_engine(arch: str, device: str, **kw):
@@ -866,12 +1027,240 @@ def big_engine(arch, flags, n_layers, run_path, profile: bool, card: str):
     return eng
 
 
+def whisper_tokens(params, cfg, frames, steps: int):
+    """Greedy tokens of len(frames) requests at the model level: each
+    prompt (lengths WHISPER_PROMPTS, cut to the frames' count) prefilled
+    alone with its frames, then `steps` decode steps of all rows."""
+    from repro_torch.models.model import greedy_generate
+    prompts = [[(7 * i + 3 * j + 1) % cfg.vocab_size for j in range(n)]
+               for i, n in enumerate(WHISPER_PROMPTS[:len(frames)])]
+    return greedy_generate(params, prompts, cfg=cfg, steps=steps, max_seq=64,
+                           extras={"audio_frames": frames})
+
+
+def small_train(arch: str, device: str, microbatches: int):
+    """Three AdamW steps of a reduced float32 `arch` from seed-0 weights on
+    seeded batches. Returns (losses, gradient norms, parameters on the
+    CPU)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import dummy_batch, init_params
+    from repro_torch.training import (
+        AdamWConfig, init_opt_state, make_train_step,
+    )
+    from repro_torch.training.optimizer import leaves
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    params = _to(init_params(cfg, seed=0, device="cpu"), device)
+    gen = torch.Generator().manual_seed(2)
+    step = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=1),
+                           microbatches=microbatches)
+    state = init_opt_state(params)
+    losses, norms = [], []
+    for _ in range(3):
+        batch = _to(dummy_batch(gen, cfg, 2, 32), device)
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    return losses, norms, [t.cpu() for t in leaves(params)]
+
+
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_to(v, device) for v in tree]
     return tree.to(device)
+
+
+def profile_train_step(cfg, params, opt_state, card: str) -> None:
+    """One more full-width train step traced with torch.profiler: the device
+    time by kernel, the device time of the step's two ranges (gradients,
+    AdamW), and the device's busy share of the wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import dummy_batch
+    from repro_torch.training import AdamWConfig, make_train_step
+    step = make_train_step(cfg, AdamWConfig(lr=1e-4, warmup_steps=1))
+    batch = dummy_batch(torch.Generator(device=params["embed"].device)
+                        .manual_seed(5), cfg, 4, 256)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    print(prof.key_averages().table(sort_by="self_device_time_total",
+                                    row_limit=25))
+    events = prof.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e.time_range for e in events if e.device_type == cuda
+               and not e.name.startswith("train_step.")]
+    busy = sum(k.elapsed_us() for k in kernels)
+    parts = []
+    for name in ("train_step.grads", "train_step.adamw"):
+        r = next(e.time_range for e in events
+                 if e.name == name and e.device_type != cuda)
+        inside = sum(k.elapsed_us() for k in kernels
+                     if r.start <= k.start <= r.end)
+        parts.append(f"{name} {inside / 1e3:.1f} ms of device time, "
+                     f"{r.elapsed_us() / 1e3:.1f} ms on the host")
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.key in ("cudaLaunchKernel", "cuLaunchKernelEx"))
+    print(f"traced {cfg.arch_id} train step on {card}: wall "
+          f"{wall * 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms "
+          f"({100 * busy / 1e6 / wall:.1f}%), {launches} kernel launches; "
+          + "; ".join(parts), flush=True)
+
+
+def run_whisper_and_training(run_path, paths, card: str, dev,
+                             profile: bool) -> None:
+    """Phase 10 (see the module's docstring)."""
+    import dataclasses
+    import math
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.models import dummy_batch, forward, init_params
+    from repro_torch.training import (
+        AdamWConfig, init_opt_state, make_train_step,
+    )
+
+    # full-width whisper-base, bf16
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("whisper-base")
+    params = init_params(cfg, seed=0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    frames = torch.randn(len(WHISPER_PROMPTS), cfg.encoder_seq_len,
+                         cfg.d_model, generator=gen, device=dev).to(
+                             torch.bfloat16)
+    t0 = time.perf_counter()
+    toks = run_path("whisper-base", lambda: whisper_tokens(
+        params, cfg, frames, WHISPER_STEPS))
+    secs = time.perf_counter() - t0
+    launches = paths["whisper-base"]
+    n, n_enc, n_req = cfg.n_layers, cfg.n_encoder_layers, len(toks)
+    want_flash = n_req * (n_enc + 2 * n) + WHISPER_STEPS * n
+    if [len(t) for t in toks] != [WHISPER_STEPS + 1] * n_req \
+            or any(not 0 <= t < cfg.vocab_size for r in toks for t in r):
+        fail("whisper-base: not every request got its tokens")
+    if launches["flash_attention"] != want_flash \
+            or launches["decode_attention"] != WHISPER_STEPS * n:
+        fail(f"whisper-base: launches {launches}, expected flash "
+             f"{want_flash} and decode {WHISPER_STEPS * n}")
+    logits, _ = forward(params, {"tokens": torch.tensor(
+        [[5, 6, 7]], device=dev), "audio_frames": frames[:1]}, cfg=cfg)
+    if logits.shape != (1, 3, cfg.vocab_size) \
+            or not bool(torch.isfinite(logits).all()):
+        fail("whisper-base: logits are not finite or of the wrong shape")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    whisper_tokens(params, cfg, frames, WHISPER_STEPS)
+    warm = time.perf_counter() - t0
+    n_tok = n_req * (WHISPER_STEPS + 1)
+    print(f"whisper-base (bf16, full width, model level): {n_req} requests "
+          f"of {list(WHISPER_PROMPTS)} tokens with {cfg.encoder_seq_len} "
+          f"frames each, {n_tok} tokens; cold {secs:.3f} s, warm "
+          f"{warm:.3f} s ({n_tok / warm:.1f} tok/s) on {card}; flash "
+          f"{launches['flash_attention']} = {n_req} prefills x ({n_enc} "
+          f"encoder + {n} self + {n} cross) + {WHISPER_STEPS} steps x {n} "
+          f"cross, decode {launches['decode_attention']} = {WHISPER_STEPS} "
+          f"x {n}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB", flush=True)
+    del params, frames, logits
+    torch.cuda.empty_cache()
+
+    rcfg = dataclasses.replace(cfg.reduced(), dtype="float32")
+    rparams = init_params(rcfg, seed=0, device="cpu")
+    rframes = torch.randn(3, rcfg.encoder_seq_len, rcfg.d_model,
+                          generator=torch.Generator().manual_seed(1))
+    on_card = run_path("reduced whisper-base", lambda: whisper_tokens(
+        _to(rparams, dev), rcfg, rframes.to(dev), 8))
+    on_cpu = whisper_tokens(rparams, rcfg, rframes, 8)
+    print(f"reduced f32 whisper-base, card vs CPU plain path: "
+          f"{'same' if on_card == on_cpu else 'DIFFERENT'} greedy tokens; "
+          f"launches on the card {paths['reduced whisper-base']}", flush=True)
+    if on_card != on_cpu:
+        fail(f"whisper-base: greedy tokens differ: card {on_card} "
+             f"cpu {on_cpu}")
+
+    # full-width gemma-2b trained through the launcher
+    torch.cuda.reset_peak_memory_stats()
+    tcfg, tparams, topt, hist = run_path(
+        "train gemma-2b", lambda: train_launcher.main(TRAIN_ARGS))
+    flash = paths["train gemma-2b"]["flash_attention"]
+    steps, batch, seq = (int(TRAIN_ARGS[TRAIN_ARGS.index(f) + 1])
+                         for f in ("--steps", "--batch", "--seq"))
+    losses = [h["loss"] for h in hist]
+    norms = [h["grad_norm"] for h in hist]
+    if len(hist) != steps or not all(map(math.isfinite, losses + norms)):
+        fail(f"gemma-2b training: losses {losses}, grad norms {norms}")
+    if abs(losses[0] - math.log(tcfg.vocab_size)) > 1.5:
+        fail(f"gemma-2b training: step-0 loss {losses[0]:.3f}, not within "
+             f"1.5 of ln V = {math.log(tcfg.vocab_size):.3f}")
+    if not all(float(layer["norm1"]["scale"].abs().sum()) > 0
+               for layer in tparams["layers"]):
+        fail("gemma-2b training: the parameters did not move")
+    n_attn = tcfg.attention_layer_count()
+    if flash != steps * n_attn:
+        fail(f"gemma-2b training: flash {flash}, expected {steps} steps x "
+             f"{n_attn} layers")
+    step_s = (hist[-1]["elapsed_s"] - hist[0]["elapsed_s"]) / (steps - 1)
+    print(f"gemma-2b training (bf16, full width, {tcfg.param_count() / 1e9:.2f}"
+          f" B params, batch {batch} x {seq}): losses "
+          f"{[round(x, 4) for x in losses]}, grad norms "
+          f"{[round(x, 3) for x in norms]}; {1e3 * step_s:.1f} ms a step "
+          f"(steps 1-{steps - 1}; step 0 {1e3 * hist[0]['elapsed_s']:.1f} "
+          f"ms), {batch * seq / step_s:.0f} tokens/s on {card}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; flash "
+          f"{flash} = {steps} steps x {n_attn} layers", flush=True)
+    if profile:
+        profile_train_step(tcfg, tparams, topt, card)
+    del tparams, topt, hist
+    torch.cuda.empty_cache()
+
+    # one train step of full-width whisper-base
+    def whisper_step():
+        p = init_params(cfg, seed=0, device=dev)
+        data = dummy_batch(torch.Generator(device=dev).manual_seed(3), cfg, 4,
+                           256)
+        step = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=1))
+        _, _, m = step(p, init_opt_state(p), data)
+        return {k: float(v) for k, v in m.items()}
+
+    m = run_path("train whisper-base", whisper_step)
+    wl = paths["train whisper-base"]
+    if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])) \
+            or wl["flash_attention"] != n_enc + 2 * n:
+        fail(f"whisper-base training: metrics {m}, launches {wl}")
+    print(f"whisper-base train step (bf16, full width, batch 4 x 256 tokens, "
+          f"256 frames): loss {m['loss']:.4f}, grad norm "
+          f"{m['grad_norm']:.3f}; flash {wl['flash_attention']} = {n_enc} "
+          f"encoder + {n} self + {n} cross", flush=True)
+    torch.cuda.empty_cache()
+
+    # three reduced float32 train steps of each family, card against CPU
+    for arch in TRAIN_ARCHS:
+        for mb in (1, 2):
+            label = f"train reduced {arch} mb{mb}"
+            card_l, card_n, card_p = run_path(
+                label, lambda arch=arch, mb=mb: small_train(arch, DEVICE, mb))
+            cpu_l, cpu_n, cpu_p = small_train(arch, "cpu", mb)
+            worst = max((a - b).abs().max().item()
+                        for a, b in zip(card_p, cpu_p, strict=True))
+            dl = max(abs(a - b) for a, b in zip(card_l, cpu_l, strict=True))
+            kernel = "ssd_diag" if arch.startswith("mamba2") \
+                else "flash_attention"
+            print(f"reduced f32 {arch} training, {mb} microbatch(es), card vs "
+                  f"CPU: losses {[round(x, 5) for x in card_l]} (max diff "
+                  f"{dl:.2e}), params max diff {worst:.2e}; launches "
+                  f"{paths[label]}", flush=True)
+            if dl > 1e-4 or worst > 5e-3 \
+                    or not all(map(math.isfinite, card_l + card_n)):
+                fail(f"{label}: card and CPU disagree")
+            if paths[label][kernel] <= 0:
+                fail(f"{label}: the {kernel} kernel did not run")
 
 
 def main(argv=None) -> None:
@@ -927,6 +1316,11 @@ def main(argv=None) -> None:
                                  (check_paged, PAGED_CASES),
                                  (check_ssd, SSD_CASES))
             for case in cases]
+    rows += [check_flash(case, dev, causal=False)
+             for case in NONCAUSAL_FLASH_CASES]
+    rows += [check_flash(case, dev, causal=causal, lse=True)
+             for case, causal in LSE_CASES]
+    rows += [check_flash_grad(case, dev) for case in GRAD_CASES]
     fns = [r.pop("fn") for r in rows]
     yard = [(r, r.pop("dense_fn")) for r in rows if "dense_fn" in r]
     times = device_us(fns + [fn for _, fn in yard])
@@ -944,6 +1338,10 @@ def main(argv=None) -> None:
             extra += f" checked_ms={r['checked_ms']:.4f}"
         if "dense_decode_us" in r:
             extra += f" dense_decode_us={r['dense_decode_us']:.2f}"
+        if "lse_err" in r:
+            extra += f" lse_err={r['lse_err']:.3e}"
+        if "bwd_ms" in r:
+            extra += f" bwd_ms={r['bwd_ms']:.4f}"
         print(f"{r['kernel']:16s} {r['dtype']:8s} {r['label']:38s} "
               f"err={r['max_abs_err']:.3e} ({100 * r['err_rms']:.2f}% "
               f"rms){extra} ms={r['ms']:.4f} "
@@ -1175,6 +1573,9 @@ def main(argv=None) -> None:
                   flush=True)
         del eng
         torch.cuda.empty_cache()
+
+    # 10. whisper-base at the model level, then training
+    run_whisper_and_training(run_path, paths, name, dev, profile)
 
     # result
     path_rows = {}

@@ -104,7 +104,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     strides = ctypes.POINTER(ctypes.c_int64)
     lib.repro_flash_attention.argtypes = [
-        vp, vp, vp, vp, strides, i32, i32, i32, i32, i32, i32, i32, i32, i32,
+        vp, vp, vp, vp, vp, strides, i32, i32, i32, i32, i32, i32, i32, i32, i32,
         f32, i32, vp]
     lib.repro_flash_attention.restype = i32
     lib.repro_flash_selftest.argtypes = [vp, vp, vp, vp, vp, i32, vp]

@@ -51,6 +51,12 @@
 // such rows by an output ulp of their largest values. At D = 256 the O
 // accumulator is 128 registers a thread; ptxas prints the count.
 //
+// Both kernels can also write each row's logsumexp of scale * q.k, float32
+// (B, Hq, Sq), when handed a buffer for it: the saved statistic of the
+// FlashAttention-2 backward (`_flash_fwd_impl`'s `lse` in
+// src/repro/models/layers.py). It costs one store a row in the epilogue;
+// serving passes null and its launches do the same work as without it.
+//
 // float32: `flash_fwd_kernel`, products on the CUDA cores in f32, which
 // keeps the f32 contract of 2e-5 (TF32 tensor cores would not). One CTA
 // owns (batch, q-head, 16-row query tile) and walks the KV tiles in a loop,
@@ -83,7 +89,7 @@ struct FlashSmem {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, Strides qs,
+                 const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse, Strides qs,
                  Strides ks, Strides vs, Strides os, int group, int sq, int sk,
                  int causal, int window, int q_offset, float scale) {
   using L = FlashSmem<T, D>;
@@ -199,12 +205,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* orow = ob + (q0 + row) * os.s + sub;
 #pragma unroll
     for (int j = 0; j < kCols; ++j) orow[j * kRowThreads] = from_f32<T>(acc[j] / denom);
+    // the row's logsumexp, for the backward: (B, Hq, Sq) float32
+    if (lse != nullptr && sub == 0)
+      lse[(static_cast<int64_t>(b) * gridDim.y + h) * sq + q0 + row] = m_run + logf(denom);
   }
 }
 
 template <typename T, int D>
 cudaError_t launch_flash(const void* q, const void* k, const void* v, void* o,
-                         const Strides* st, int b, int hq, int hkv, int sq,
+                         float* lse, const Strides* st, int b, int hq, int hkv, int sq,
                          int sk, int causal, int window, int q_offset,
                          float scale, cudaStream_t stream) {
   constexpr size_t smem = FlashSmem<T, D>::kBytes;
@@ -214,7 +223,7 @@ cudaError_t launch_flash(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((sq + kBQ - 1) / kBQ, hq, b);
   flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), st[0], st[1], st[2], st[3], hq / hkv, sq, sk, causal,
+      static_cast<T*>(o), lse, st[0], st[1], st[2], st[3], hq / hkv, sq, sk, causal,
       window, q_offset, scale);
   return cudaGetLastError();
 }
@@ -232,6 +241,7 @@ constexpr int kBM = 64;     // query rows a consumer warpgroup
 constexpr int kBK = 64;     // keys a KV tile
 constexpr int kStages = 2;  // K/V tiles in the ring
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 // A warpgroup whose rows see at most this many keys takes P in three bf16
 // terms and sums S in f32 a 64-column block at a time. There the largest
 // outputs lie (a row over n keys has |o| of about sqrt(e / n)), and one
@@ -405,8 +415,9 @@ __device__ __forceinline__ void bar_sync_wg(int wg) {
 template <int D, int WG>
 __global__ void __launch_bounds__(Cfg<D, WG>::kThreads, 1)
 flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, bf16* __restrict__ o, Strides qs, Strides ks,
-                Strides vs, Strides os, int group, tiles::FastDiv sq, int sk, int causal,
+                const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+                Strides qs, Strides ks, Strides vs, Strides os, int group, tiles::FastDiv sq,
+                int sk, int causal,
                 int window, int q_offset, float scale_log2, int n_tiles) {
   using L = Cfg<D, WG>;
   constexpr int kDP = L::kDP;
@@ -574,6 +585,22 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 1);
     l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 2);
   }
+  // the rows' logsumexp for the backward, (B, Hq, Sq) float32, in natural
+  // units: m_run is in log2 units (the scores were scaled by scale * log2 e),
+  // except the finite mask kNegInf of a row that sees no key, kept as the
+  // reference keeps it. A kv-head's packed rows are its q-heads' rows in
+  // order, so row pr lies at (b * Hq + hk * group) * Sq + pr.
+  if (lse != nullptr && lane % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int pr = w0 + warp * 16 + lane / 4 + 8 * i;
+      if (pr < rows_total) {
+        const float m = m_run[i] == kNegInf ? kNegInf : m_run[i] * kLn2;
+        lse[(static_cast<int64_t>(b) * gridDim.y + hk) * rows_total + pr] =
+            m + logf(fmaxf(l_run[i], 1e-30f));
+      }
+    }
+  }
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = wg * kBM + warp * 16 + lane / 4 + 8 * i;
@@ -668,7 +695,8 @@ int sm_count() {
 }
 
 template <int D, int WG>
-cudaError_t launch_wg(const void* q, const void* k, const void* v, void* o, const Strides* st,
+cudaError_t launch_wg(const void* q, const void* k, const void* v, void* o, float* lse,
+                      const Strides* st,
                       int b, int hkv, int group, int sq, int sk, int causal, int window,
                       int q_offset, float scale, cudaStream_t stream) {
   using L = Cfg<D, WG>;
@@ -678,7 +706,7 @@ cudaError_t launch_wg(const void* q, const void* k, const void* v, void* o, cons
   const dim3 grid(n_tiles, hkv, b);
   flash_tc_kernel<D, WG><<<grid, L::kThreads, L::kBytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), st[0], st[1], st[2], st[3], group, tiles::FastDiv(sq), sk, causal,
+      static_cast<bf16*>(o), lse, st[0], st[1], st[2], st[3], group, tiles::FastDiv(sq), sk, causal,
       window, q_offset, scale * kLog2e, n_tiles);
   return cudaGetLastError();
 }
@@ -686,16 +714,17 @@ cudaError_t launch_wg(const void* q, const void* k, const void* v, void* o, cons
 // Two warpgroups a CTA unless that grid would leave more than half the SMs
 // idle (the serving path's prompts): then one, for twice the CTAs.
 template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, const Strides* st,
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
+                   const Strides* st,
                    int b, int hq, int hkv, int sq, int sk, int causal, int window, int q_offset,
                    float scale, cudaStream_t stream) {
   const int group = hq / hkv;
   const long long ctas2 =
       static_cast<long long>((group * sq + 2 * kBM - 1) / (2 * kBM)) * hkv * b;
   if (2 * ctas2 < sm_count())
-    return launch_wg<D, 1>(q, k, v, o, st, b, hkv, group, sq, sk, causal, window, q_offset,
+    return launch_wg<D, 1>(q, k, v, o, lse, st, b, hkv, group, sq, sk, causal, window, q_offset,
                            scale, stream);
-  return launch_wg<D, 2>(q, k, v, o, st, b, hkv, group, sq, sk, causal, window, q_offset,
+  return launch_wg<D, 2>(q, k, v, o, lse, st, b, hkv, group, sq, sk, causal, window, q_offset,
                          scale, stream);
 }
 
@@ -714,38 +743,38 @@ cudaError_t selftest(const void* q, const void* k, const void* v, float* s, floa
 }  // namespace tc
 
 cudaError_t dispatch_f32(int d, const void* q, const void* k, const void* v, void* o,
-                         const Strides* st, int b, int hq, int hkv, int sq, int sk, int causal,
+                         float* lse, const Strides* st, int b, int hq, int hkv, int sq, int sk, int causal,
                          int window, int q_offset, float scale, cudaStream_t stream) {
   switch (d) {
     case 48:
-      return launch_flash<float, 48>(q, k, v, o, st, b, hq, hkv, sq, sk, causal, window, q_offset, scale, stream);
+      return launch_flash<float, 48>(q, k, v, o, lse, st, b, hq, hkv, sq, sk, causal, window, q_offset, scale, stream);
     case 64:
-      return launch_flash<float, 64>(q, k, v, o, st, b, hq, hkv, sq, sk, causal, window, q_offset, scale, stream);
+      return launch_flash<float, 64>(q, k, v, o, lse, st, b, hq, hkv, sq, sk, causal, window, q_offset, scale, stream);
     case 96:
-      return launch_flash<float, 96>(q, k, v, o, st, b, hq, hkv, sq, sk, causal, window, q_offset, scale, stream);
+      return launch_flash<float, 96>(q, k, v, o, lse, st, b, hq, hkv, sq, sk, causal, window, q_offset, scale, stream);
     case 128:
-      return launch_flash<float, 128>(q, k, v, o, st, b, hq, hkv, sq, sk, causal, window, q_offset, scale, stream);
+      return launch_flash<float, 128>(q, k, v, o, lse, st, b, hq, hkv, sq, sk, causal, window, q_offset, scale, stream);
     case 256:
-      return launch_flash<float, 256>(q, k, v, o, st, b, hq, hkv, sq, sk, causal, window, q_offset, scale, stream);
+      return launch_flash<float, 256>(q, k, v, o, lse, st, b, hq, hkv, sq, sk, causal, window, q_offset, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
 cudaError_t dispatch_bf16(int d, const void* q, const void* k, const void* v, void* o,
-                          const Strides* st, int b, int hq, int hkv, int sq, int sk, int causal,
+                          float* lse, const Strides* st, int b, int hq, int hkv, int sq, int sk, int causal,
                           int window, int q_offset, float scale, cudaStream_t stream) {
   switch (d) {
     case 48:
-      return tc::launch<48>(q, k, v, o, st, b, hq, hkv, sq, sk, causal, window, q_offset, scale, stream);
+      return tc::launch<48>(q, k, v, o, lse, st, b, hq, hkv, sq, sk, causal, window, q_offset, scale, stream);
     case 64:
-      return tc::launch<64>(q, k, v, o, st, b, hq, hkv, sq, sk, causal, window, q_offset, scale, stream);
+      return tc::launch<64>(q, k, v, o, lse, st, b, hq, hkv, sq, sk, causal, window, q_offset, scale, stream);
     case 96:
-      return tc::launch<96>(q, k, v, o, st, b, hq, hkv, sq, sk, causal, window, q_offset, scale, stream);
+      return tc::launch<96>(q, k, v, o, lse, st, b, hq, hkv, sq, sk, causal, window, q_offset, scale, stream);
     case 128:
-      return tc::launch<128>(q, k, v, o, st, b, hq, hkv, sq, sk, causal, window, q_offset, scale, stream);
+      return tc::launch<128>(q, k, v, o, lse, st, b, hq, hkv, sq, sk, causal, window, q_offset, scale, stream);
     case 256:
-      return tc::launch<256>(q, k, v, o, st, b, hq, hkv, sq, sk, causal, window, q_offset, scale, stream);
+      return tc::launch<256>(q, k, v, o, lse, st, b, hq, hkv, sq, sk, causal, window, q_offset, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -756,10 +785,12 @@ cudaError_t dispatch_bf16(int d, const void* q, const void* k, const void* v, vo
 
 // strides: 12 element strides, (batch, head, seq) for q, k, v and o in turn.
 // dtype: 0 float32 (CUDA-core kernel), 1 bfloat16 (tensor-core kernel; the
-// pointers and the strides must be 16-byte aligned). Returns the launch's
+// pointers and the strides must be 16-byte aligned). lse: null, or a
+// contiguous (b, hq, sq) float32 buffer that takes each row's logsumexp of
+// scale * q.k (natural log), which the backward reads. Returns the launch's
 // cudaError_t.
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v,
-                                     void* o, const int64_t* strides, int b,
+                                     void* o, void* lse, const int64_t* strides, int b,
                                      int hq, int hkv, int sq, int sk, int d,
                                      int causal, int window, int q_offset,
                                      float scale, int dtype, void* stream) {
@@ -770,10 +801,11 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
                          {strides[6], strides[7], strides[8]},
                          {strides[9], strides[10], strides[11]}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* lse_f = static_cast<float*>(lse);
   if (dtype == 0)
-    return (int)repro::dispatch_f32(d, q, k, v, o, st, b, hq, hkv, sq, sk, causal, window, q_offset, scale, s);
+    return (int)repro::dispatch_f32(d, q, k, v, o, lse_f, st, b, hq, hkv, sq, sk, causal, window, q_offset, scale, s);
   if (dtype == 1)
-    return (int)repro::dispatch_bf16(d, q, k, v, o, st, b, hq, hkv, sq, sk, causal, window, q_offset, scale, s);
+    return (int)repro::dispatch_bf16(d, q, k, v, o, lse_f, st, b, hq, hkv, sq, sk, causal, window, q_offset, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

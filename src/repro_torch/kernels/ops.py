@@ -10,6 +10,8 @@ where it cannot run.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _paged
@@ -24,14 +26,24 @@ def _check_kernel_device(x, force_kernel: bool) -> None:
             f"the plain version on the CPU)")
 
 
+def _needs_grad(*xs) -> bool:
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     q_offset: int = 0, scale: float = 1.0,
                     force_kernel: bool = False):
-    """q: (B, Sq, Hq, D); k, v: (B, Sk, Hkv, D) -> (B, Sq, Hq, D)."""
+    """q: (B, Sq, Hq, D); k, v: (B, Sk, Hkv, D) -> (B, Sq, Hq, D). Where a
+    gradient is wanted it goes through `FlashAttentionFn` (the same kernel
+    launch, with the logsumexp saved for the backward)."""
     _check_kernel_device(q, force_kernel)
-    out = _fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                              v.transpose(1, 2), causal=causal, window=window,
-                              q_offset=q_offset, scale=scale)
+    args = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    if _needs_grad(q, k, v):
+        out = _fa.FlashAttentionFn.apply(*args, causal, window, q_offset,
+                                         scale)
+    else:
+        out = _fa.flash_attention(*args, causal=causal, window=window,
+                                  q_offset=q_offset, scale=scale)
     return out.transpose(1, 2)
 
 
@@ -71,6 +83,8 @@ def ssd_diag(x, dt, A, Bm, Cm, *, chunk: int = 256,
     """Mamba-2 SSD diagonal block. x: (B, S, H, P); dt: (B, S, H); A: (H,);
     Bm, Cm: (B, S, N); float32. Returns (B, S, H, P) float32."""
     _check_kernel_device(x, force_kernel)
+    if _needs_grad(x, dt, A, Bm, Cm):
+        return _ssd.SSDDiagFn.apply(x, dt, A, Bm, Cm, chunk)
     return _ssd.ssd_diag(x, dt, A, Bm, Cm, chunk=chunk)
 
 

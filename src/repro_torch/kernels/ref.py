@@ -22,6 +22,31 @@ NEG_INF = -1e30
 MIN_SPLIT_SLOTS = 256
 
 
+def attention_mask(q_pos, k_pos, *, causal: bool, window: int):
+    """Which keys each query sees: (len(q_pos), len(k_pos)) boolean, from
+    absolute positions (``q_offset`` already added to the queries')."""
+    qi, kj = q_pos[:, None], k_pos[None, :]
+    mask = torch.ones((len(q_pos), len(k_pos)), dtype=torch.bool,
+                      device=q_pos.device)
+    if causal:
+        mask = mask & (kj <= qi)
+    if window > 0:
+        mask = mask & (kj > qi - window)
+    return mask
+
+
+def _flash_logits(q, k, causal, window, q_offset, scale):
+    """The masked float32 logits (B, Hkv, G, Sq, Sk) of q against k."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    qg = q.reshape(b, hkv, hq // hkv, sq, d).float()
+    logits = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) * scale
+    mask = attention_mask(torch.arange(sq, device=q.device) + q_offset,
+                          torch.arange(sk, device=q.device), causal=causal,
+                          window=window)
+    return torch.where(mask, logits, torch.full_like(logits, NEG_INF))
+
+
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
                         q_offset: int = 0, scale: float = 1.0):
     """q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D). GQA via head grouping.
@@ -29,21 +54,24 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     Returns (B, Hq, Sq, D) in q.dtype; softmax in f32.
     """
     b, hq, sq, d = q.shape
-    hkv, sk = k.shape[1], k.shape[2]
-    g = hq // hkv
-    qg = q.reshape(b, hkv, g, sq, d).float()
-    logits = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) * scale
-    qi = torch.arange(sq, device=q.device)[:, None] + q_offset
-    ki = torch.arange(sk, device=q.device)[None, :]
-    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask = mask & (ki <= qi)
-    if window > 0:
-        mask = mask & (ki > qi - window)
-    logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
+    logits = _flash_logits(q, k, causal, window, q_offset, scale)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgqk,bhkd->bhgqd", probs, v.float())
     return out.reshape(b, hq, sq, d).to(q.dtype)
+
+
+def flash_attention_lse_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                            q_offset: int = 0, scale: float = 1.0):
+    """`flash_attention_ref` with each row's logsumexp of the masked
+    ``scale * q.k``, the statistic the kernel writes for the backward.
+
+    Returns (out (B, Hq, Sq, D) in q.dtype, lse (B, Hq, Sq) float32)."""
+    b, hq, sq, d = q.shape
+    logits = _flash_logits(q, k, causal, window, q_offset, scale)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", probs, v.float())
+    lse = torch.logsumexp(logits, dim=-1)
+    return out.reshape(b, hq, sq, d).to(q.dtype), lse.reshape(b, hq, sq)
 
 
 def decode_attention_ref(q, k, v, valid_len, *, scale: float = 1.0):
@@ -203,8 +231,11 @@ def ssd_diag_ref(x, dt, A, Bm, Cm, *, chunk: int = 256,
     decay = cum[:, :, :, None, :] - cum[:, :, None, :, :]
     idx = torch.arange(chunk, device=x.device)
     mask = idx[:, None] >= idx[None, :]
-    lmat = torch.where(mask[None, None, :, :, None], torch.exp(decay),
-                       torch.zeros((), dtype=dtype, device=x.device))
+    # masked before the exp: above the diagonal decay > 0 may overflow, and
+    # exp's gradient there would be inf * 0 = nan
+    lmat = torch.exp(torch.where(mask[None, None, :, :, None], decay,
+                                 torch.full((), -torch.inf, dtype=dtype,
+                                            device=x.device)))
     y = torch.einsum("bcqk,bcqkh,bckhp->bcqhp", scores, lmat, dtx)
     return y.reshape(b, s, h, p).float()
 

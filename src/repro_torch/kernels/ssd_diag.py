@@ -4,7 +4,8 @@
 On a CUDA tensor it launches the hand-written kernels, or raises; on a CPU
 tensor it runs the plain version in ``ref.py``. ``ssd_diag.launches`` counts
 the wrapper's calls that launched: one a call, though each call runs two
-kernels (the chunk's C·Bᵀ tiles and cum, then the heads).
+kernels (the chunk's C·Bᵀ tiles and cum, then the heads). Training goes
+through `SSDDiagFn`, whose backward differentiates the plain version.
 """
 from __future__ import annotations
 
@@ -58,3 +59,23 @@ def ssd_diag(x, dt, A, Bm, Cm, *, chunk: int = 256):
 
 
 ssd_diag.launches = 0
+
+
+class SSDDiagFn(torch.autograd.Function):
+    """`ssd_diag` with a gradient: the forward is the wrapper (the kernel on
+    the card, counted; the plain version on the CPU), the backward re-runs
+    the plain version on the saved inputs and differentiates it, as the JAX
+    package's gradient goes through its plain jnp block."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, chunk: int):
+        ctx.save_for_backward(x, dt, A, Bm, Cm)
+        ctx.chunk = chunk
+        return ssd_diag(x, dt, A, Bm, Cm, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, dy):
+        inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            y = ssd_diag_ref(*inputs, chunk=ctx.chunk)
+        return (*torch.autograd.grad(y, inputs, dy), None)

@@ -3,11 +3,13 @@
 Each is a plain function of (parameter dict, tensors); ``init_*`` builds the
 matching dict from a ``torch.Generator``. Attention covers GQA/MQA, sliding
 windows and rolling KV caches (keys are cached after rotation, so slot
-order does not matter); MLA keeps the compressed latent cache. Prefill
-attention (MLA's included) runs on the flash kernel and decode on the
+order does not matter); MLA keeps the compressed latent cache. Cross
+attention (the encoder-decoder family) takes its keys and values from the
+encoder's output, or from their cache at decode; the encoder's own
+attention is bidirectional and unrotated. Prefill, encoder and cross
+attention (MLA's prefill included) run on the flash kernel and decode on the
 decode kernel when the tensors lie on the card; MLA decode is latent matrix
-products, as in the JAX package. Cross attention and context-parallel
-decode are not ported yet.
+products, as in the JAX package. Context-parallel decode is not ported yet.
 """
 from __future__ import annotations
 
@@ -154,8 +156,9 @@ def init_attention(gen, cfg: ModelConfig, device=None):
 
 def attn_op(q, k, v, *, causal: bool, window: int, scale: float,
             q_offset: int = 0):
-    """Causal / windowed attention in the model layout (B, S, H, D): the
-    flash kernel on the card, its plain version on the CPU."""
+    """Causal / windowed / bidirectional attention in the model layout (B,
+    S, H, D): the flash kernel on the card, its plain version on the CPU;
+    with a gradient where one is wanted (`kernels.ops.flash_attention`)."""
     return kops.flash_attention(q, k, v, causal=causal, window=window,
                                 q_offset=q_offset, scale=scale)
 
@@ -189,19 +192,35 @@ def update_cache_seq(cache_arr, new, pos):
 
 
 def attention_layer(p, x, *, cfg: ModelConfig, mode: str, cache=None,
-                    pos=None, window: int = 0, positions=None):
+                    pos=None, window: int = 0, positions=None, enc_out=None,
+                    enc_cache=None, causal: bool = True):
     """One attention op (no residual/norm).
 
-    mode: "train" | "prefill" | "decode". Returns (out, cache'). The cache
-    tensors are updated in place (JAX builds new arrays): the caller's cache
-    dict is the one returned. positions: (B, S), or the (3, B, S) M-RoPE
-    streams of a ``cfg.mrope`` model (rotated by `apply_mrope`).
+    mode: "train" | "prefill" | "decode" | "encode". Returns (out, cache').
+    The cache tensors are updated in place (JAX builds new arrays): the
+    caller's cache dict is the one returned. positions: (B, S), or the (3,
+    B, S) M-RoPE streams of a ``cfg.mrope`` model (rotated by
+    `apply_mrope`). With ``enc_out`` (B, S_enc, D) or ``enc_cache`` {"k",
+    "v"} it is cross attention: queries from x, keys and values from the
+    encoder (projected here, or cached), bidirectional and unrotated; it
+    returns the keys and values as its cache. RoPE applies only where
+    ``causal`` (the encoder's self-attention has none).
     """
     ad = attn_dims(cfg)
     b, s, _ = x.shape
     scale = 1.0 / math.sqrt(ad.head_dim)
 
     q = (x @ p["wq"]).view(b, s, ad.n_heads, ad.head_dim)
+    if enc_out is not None or enc_cache is not None:
+        if enc_cache is not None:
+            k, v = enc_cache["k"], enc_cache["v"]
+        else:
+            shape = (b, enc_out.shape[1], ad.n_kv_heads, ad.head_dim)
+            k = (enc_out @ p["wk"]).view(shape)
+            v = (enc_out @ p["wv"]).view(shape)
+        out = attn_op(q, k, v, causal=False, window=0, scale=scale)
+        out = out.reshape(b, s, ad.n_heads * ad.head_dim) @ p["wo"]
+        return out, {"k": k, "v": v}
     k = (x @ p["wk"]).view(b, s, ad.n_kv_heads, ad.head_dim)
     v = (x @ p["wv"]).view(b, s, ad.n_kv_heads, ad.head_dim)
 
@@ -211,13 +230,16 @@ def attention_layer(p, x, *, cfg: ModelConfig, mode: str, cache=None,
             positions = positions.expand(b, s)
         else:
             positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
-    rope = apply_mrope if cfg.mrope and positions.ndim == 3 else apply_rope
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    if cfg.mrope and positions.ndim == 3:
+        q = apply_mrope(q, positions, cfg.rope_theta)
+        k = apply_mrope(k, positions, cfg.rope_theta)
+    elif causal:  # encoders use their own (or no) positional scheme
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
 
     new_cache = None
-    if mode == "train" or (cache is None and mode == "prefill"):
-        out = attn_op(q, k, v, causal=True, window=window, scale=scale)
+    if mode in ("train", "encode") or (cache is None and mode == "prefill"):
+        out = attn_op(q, k, v, causal=causal, window=window, scale=scale)
     elif mode == "prefill":
         out = attn_op(q, k, v, causal=True, window=window, scale=scale)
         cache_len = cache["k"].shape[1]

@@ -1,19 +1,22 @@
 """Block-program transformer assembly (dense, MoE, MLA, Mamba-2, RG-LRU
-hybrid and M-RoPE families).
+hybrid, M-RoPE and encoder-decoder families).
 
 An architecture is a *block program*: optional leading ``head`` layers, a
 repeating ``superblock`` and an optional ``tail`` (e.g. gemma3's 5 local :
 1 global superblock, gemma3-27b's 62 = 10*6 + 2 layers, deepseek-moe's one
 dense-MLP head layer before 27 MoE layers, mamba2's single ssm layer 64
 times, recurrentgemma's (rec, rec, attn(window)) superblock 8 times and a
-(rec, rec) tail). M-RoPE (qwen2-vl) changes only the rotary embedding, not
-the program. The JAX package scans stacked superblock parameters; the port
-keeps one parameter dict and one cache dict per layer, in execution order,
-and runs them in a Python loop. Cache leaves are batch-first: attention (B,
-S, Hkv, D) ``k``/``v``, MLA (B, S, kv_lora_rank) ``ckv`` and (B, S,
-qk_rope_head_dim) ``krope``, ssm (B, H, P, N) ``state`` and (B, d_conv - 1,
-C) ``conv``, rec (B, d_rnn) float32 ``h`` and (B, d_conv - 1, d_rnn)
-``conv``.
+(rec, rec) tail, whisper's decoder of attn(full, cross) 6 times). M-RoPE
+(qwen2-vl) changes only the rotary embedding, not the program. Whisper's
+encoder is a bidirectional attention stack of its own over the audio
+frames (`run_encoder`). The JAX package scans stacked superblock
+parameters; the port keeps one parameter dict and one cache dict per layer,
+in execution order, and runs them in a Python loop. Cache leaves are
+batch-first: attention (B, S, Hkv, D) ``k``/``v`` (with a cross layer's
+(B, S_enc, Hkv, D) ``cross_k``/``cross_v``), MLA (B, S, kv_lora_rank)
+``ckv`` and (B, S, qk_rope_head_dim) ``krope``, ssm (B, H, P, N) ``state``
+and (B, d_conv - 1, C) ``conv``, rec (B, d_rnn) float32 ``h`` and (B,
+d_conv - 1, d_rnn) ``conv``.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import dataclasses
 from typing import List, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -28,19 +32,17 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as RG
 from repro_torch.models import ssm as SSM
 
-NOT_PORTED = ("is not ported yet (ROADMAP.md §1: the encoder-decoder "
-              "family)")
-
 
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
     """An attention (``attn``), latent-attention (``mla``), Mamba-2
     (``ssm``) or RG-LRU recurrent (``rec``) layer, with a routed-expert MLP
-    where ``moe``; the JAX package's cross-attention layers (``cross``) are
-    not ported yet."""
+    where ``moe`` and a cross-attention sublayer over the encoder's output
+    where ``cross``."""
     kind: str = "attn"        # attn | mla | ssm | rec
     window: int = 0           # 0 -> full attention
     moe: bool = False
+    cross: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,13 +64,10 @@ class BlockProgram:
 
 
 def block_program(cfg: ModelConfig) -> BlockProgram:
-    """The block program of a dense, MoE, MLA, Mamba-2, RG-LRU hybrid or
-    M-RoPE model, as the JAX package builds it; an encoder-decoder model
-    raises."""
+    """The block program of `cfg`'s decoder, as the JAX package builds
+    it."""
     if cfg.family == "ssm":
         return BlockProgram((), (LayerSpec("ssm"),), cfg.n_layers, ())
-    if cfg.enc_dec:
-        raise NotImplementedError(f"{cfg.arch_id} ({cfg.family}) {NOT_PORTED}")
     if cfg.rglru is not None:
         pat = tuple(
             LayerSpec("rec") if kind == "rec"
@@ -86,7 +85,8 @@ def block_program(cfg: ModelConfig) -> BlockProgram:
         tail = sb[: cfg.n_layers - n_sb * per]
         return BlockProgram((), sb, n_sb, tail)
     moe = cfg.n_experts > 0
-    spec = LayerSpec(kind, window=cfg.sliding_window, moe=moe)
+    spec = LayerSpec(kind, window=cfg.sliding_window, moe=moe,
+                     cross=cfg.enc_dec)
     if moe and cfg.n_shared_experts:
         # DeepSeekMoE: the first layer keeps a dense MLP
         head = (LayerSpec(kind, window=cfg.sliding_window),)
@@ -114,6 +114,9 @@ def init_layer(gen, spec: LayerSpec, cfg: ModelConfig, device=None):
         p["mix"] = RG.init_rglru(gen, cfg, device)
     else:
         raise ValueError(spec.kind)
+    if spec.cross:
+        p["norm_cross"] = L.init_rmsnorm(d, device)
+        p["cross"] = L.init_attention(gen, cfg, device)
     p["norm2"] = L.init_rmsnorm(d, device)
     if spec.moe:
         p["moe"] = MOE.init_moe(gen, cfg, device)
@@ -134,15 +137,27 @@ def init_layer_cache(spec: LayerSpec, cfg: ModelConfig, batch: int,
         return RG.init_rglru_cache(cfg, batch, dtype=dtype, device=device)
     if spec.kind != "attn":
         raise ValueError(spec.kind)
-    return L.init_kv_cache(cfg, batch, max_seq, window=spec.window,
-                           dtype=dtype, device=device)
+    c = L.init_kv_cache(cfg, batch, max_seq, window=spec.window, dtype=dtype,
+                        device=device)
+    if spec.cross:
+        # the encoder's keys and values, written by prefill; prefill puts
+        # the encoder's own length in place of these encoder_seq_len slots
+        ad = L.attn_dims(cfg)
+        shape = (batch, cfg.encoder_seq_len, ad.n_kv_heads, ad.head_dim)
+        dt = dtype or L.torch_dtype(cfg.dtype)
+        c["cross_k"] = torch.zeros(shape, dtype=dt, device=device)
+        c["cross_v"] = torch.zeros(shape, dtype=dt, device=device)
+    return c
 
 
 def apply_layer(spec: LayerSpec, p, x, *, cfg: ModelConfig, mode: str,
                 cache=None, pos=None, positions=None,
-                moe_dispatch: str = "dense"):
+                moe_dispatch: str = "dense", enc_out=None):
     """Pre-norm residual block. Returns (x, cache', aux): aux holds the
-    MoE layer's ``moe_aux_loss``, and is empty for other layers."""
+    MoE layer's ``moe_aux_loss``, and is empty for other layers. A cross
+    layer attends to ``enc_out`` (train, prefill) or to its cached
+    ``cross_k``/``cross_v`` (decode); prefill replaces those cache entries
+    with the encoder's keys and values, at the encoder's own length."""
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
     if spec.kind == "ssm":
         mix, new_cache = SSM.ssm_layer(p["mix"], h, cfg=cfg, mode=mode,
@@ -160,6 +175,21 @@ def apply_layer(spec: LayerSpec, p, x, *, cfg: ModelConfig, mode: str,
             p["mix"], h, cfg=cfg, mode=mode, cache=cache, pos=pos,
             window=spec.window, positions=positions)
     x = x + mix
+    use_cross = spec.cross and (
+        enc_out is not None
+        or (mode == "decode" and cache is not None and "cross_k" in cache))
+    if use_cross:
+        h = L.rmsnorm(p["norm_cross"], x, cfg.norm_eps)
+        enc_cache = None
+        if cache is not None and mode == "decode":
+            enc_cache = {"k": cache["cross_k"], "v": cache["cross_v"]}
+        mix, cross_kv = L.attention_layer(
+            p["cross"], h, cfg=cfg, mode=mode, enc_out=enc_out,
+            enc_cache=enc_cache, causal=False)
+        x = x + mix
+        if new_cache is not None:
+            new_cache["cross_k"] = cross_kv["k"]
+            new_cache["cross_v"] = cross_kv["v"]
     h = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
     aux = {}
     if spec.moe:
@@ -187,20 +217,67 @@ def init_stack_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
 
 
 def run_stack(layers, x, *, cfg: ModelConfig, mode: str, cache=None,
-              pos=None, positions=None, moe_dispatch: str = "dense"):
+              pos=None, positions=None, moe_dispatch: str = "dense",
+              enc_out=None, remat: bool = False):
     """Apply every layer in order. Returns (x, cache', aux): the cache is
     updated in place and returned for prefill and decode; aux holds
     ``moe_aux_loss``, summed over the layers as the JAX package sums it
-    (float32 zero for a model without MoE layers)."""
+    (float32 zero for a model without MoE layers). With ``remat`` in train
+    mode each layer runs under `torch.utils.checkpoint`, so the backward
+    recomputes one layer at a time (the JAX package's nested remat)."""
     specs = block_program(cfg).layers()
     aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    layer_remat = remat and mode == "train"
     for i, (spec, p) in enumerate(zip(specs, layers, strict=True)):
         c = cache[i] if cache is not None else None
-        x, _, aux = apply_layer(spec, p, x, cfg=cfg, mode=mode, cache=c,
-                                pos=pos, positions=positions,
-                                moe_dispatch=moe_dispatch)
+        kw = dict(cfg=cfg, mode=mode, cache=c, pos=pos, positions=positions,
+                  moe_dispatch=moe_dispatch, enc_out=enc_out)
+        if layer_remat:
+            x, _, aux = torch.utils.checkpoint.checkpoint(
+                apply_layer, spec, p, x, use_reentrant=False, **kw)
+        else:
+            x, _, aux = apply_layer(spec, p, x, **kw)
         if "moe_aux_loss" in aux:
             aux_sum = aux_sum + aux["moe_aux_loss"]
     new_cache = cache if cache is not None \
         and mode in ("prefill", "decode") else None
     return x, new_cache, {"moe_aux_loss": aux_sum}
+
+
+# ---------------------------------------------------------------------------
+# Whisper encoder (bidirectional stack over stub frame embeddings)
+# ---------------------------------------------------------------------------
+
+
+def init_encoder(gen, cfg: ModelConfig, device=None):
+    """One parameter dict per encoder layer (plain attention + MLP) and the
+    final norm."""
+    spec = LayerSpec("attn")
+    return {"layers": [init_layer(gen, spec, cfg, device)
+                       for _ in range(cfg.n_encoder_layers)],
+            "norm": L.init_rmsnorm(cfg.d_model, device)}
+
+
+def sinusoidal_positions(seq: int, d: int, device=None):
+    """(1, seq, d) float32: sin of the d/2 frequencies, then cos."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / torch.pow(torch.tensor(10000.0, device=device), dim / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)[None]
+
+
+def run_encoder(params, frames, *, cfg: ModelConfig):
+    """frames: (B, S_enc, D) stub conv-frontend embeddings -> (B, S_enc, D).
+    Each layer's attention is bidirectional (the flash kernel with
+    ``causal=False`` on the card) and unrotated."""
+    x = frames + sinusoidal_positions(frames.shape[1], cfg.d_model,
+                                      frames.device).to(frames.dtype)
+
+    for p in params["layers"]:
+        h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
+        mix, _ = L.attention_layer(p["mix"], h, cfg=cfg, mode="encode",
+                                   causal=False)
+        x = x + mix
+        h = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
+        x = x + L.mlp(p["mlp"], h, cfg.activation)
+    return L.rmsnorm(params["norm"], x, cfg.norm_eps)

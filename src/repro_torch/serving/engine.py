@@ -78,6 +78,13 @@ class ServingEngine:
                  seed: int = 0, paged: bool = False,
                  kv_blocks: Optional[int] = None, kv_block_tokens: int = 16,
                  prefix_sharing: bool = True, moe_dispatch: str = "dense"):
+        if cfg.enc_dec:
+            raise ValueError(
+                f"{cfg.arch_id} is an encoder-decoder model: the engine's "
+                f"prefill batch holds tokens alone, with no audio frames to "
+                f"encode (the JAX engine's as well, which fails on "
+                f"'audio_frames'); serve it at the model level through "
+                f"repro_torch.models.prefill and decode_step")
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params are on {params['embed'].device}, the "

@@ -18,7 +18,7 @@ COPIED = sorted(
      for p in (SRC / "repro" / d).glob("*.py")]
     + [Path("obs") / f for f in ("__init__.py", "metrics.py", "trace.py",
                                  "export.py", "report.py")]
-    + [Path("serving/perllm_server.py")])
+    + [Path("serving/perllm_server.py"), Path("training/data.py")])
 
 
 def renamed(text: str) -> str:

@@ -725,3 +725,244 @@ def test_rglru_and_mrope_engines_run_on_the_kernels(cuda, arch):
             assert steps > 0 and launches["decode_attention"] == steps * n_attn
         out.append([r.generated for r in done])
     assert out[0] == out[1]
+
+
+# ---------------------------------------------------------------------------
+# the encoder-decoder family (whisper-base: 8 heads of 64, 1500 frames) and
+# training: non-causal flash, its logsumexp, the kernels' autograd Functions
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("b,hq,hkv,sq,sk", [
+    (2, 8, 8, 1, 1500),       # cross attention at decode
+    (2, 8, 8, 32, 1500),      # cross attention at prefill
+    (1, 8, 8, 1500, 1500),    # the encoder: a ragged last tile of 28 keys
+    (1, 4, 2, 77, 1000),      # GQA, ragged query and key tails
+])
+def test_flash_noncausal_on_cuda(cuda, dtype, tol, d, b, hq, hkv, sq, sk):
+    dt = TORCH_DT[dtype]
+    q = torch.from_numpy(_normal(130, b, hq, sq, d)).to(cuda, dt)
+    k = torch.from_numpy(_normal(131, b, hkv, sk, d)).to(cuda, dt)
+    v = torch.from_numpy(_normal(132, b, hkv, sk, d)).to(cuda, dt)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=False, scale=d ** -0.5)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    ref = tref.flash_attention_ref(q, k, v, causal=False, scale=d ** -0.5)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    assert _rms_ok(out, ref)
+
+
+LSE_TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
+           "bfloat16": dict(rtol=1e-4, atol=1e-3)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal,window", [
+    (1, 8, 1, 32, 32, 256, True, 0),       # gemma-2b's serving path
+    (4, 8, 1, 256, 256, 256, True, 0),     # gemma-2b's training shape
+    (1, 8, 8, 1500, 1500, 64, False, 0),   # whisper's encoder
+    (2, 8, 8, 1, 1500, 64, False, 0),      # cross attention at decode
+    (1, 16, 8, 40, 40, 256, True, 16),     # window, GQA, ragged
+    (1, 2, 2, 16, 16, 48, True, 0),        # MLA's D 48, padded tiles
+])
+def test_flash_lse_on_cuda(cuda, dtype, b, hq, hkv, sq, sk, d, causal,
+                           window):
+    """The kernel's logsumexp against the plain one (bf16: the scores come
+    from the tensor cores and exp2 in hardware, to about 1e-5 of their
+    size), and the same output as a launch without it."""
+    dt = TORCH_DT[dtype]
+    q = torch.from_numpy(_normal(140, b, hq, sq, d)).to(cuda, dt)
+    k = torch.from_numpy(_normal(141, b, hkv, sk, d)).to(cuda, dt)
+    v = torch.from_numpy(_normal(142, b, hkv, sk, d)).to(cuda, dt)
+    kw = dict(causal=causal, window=window, scale=d ** -0.5)
+    out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    plain, plain_lse = tref.flash_attention_lse_ref(q, k, v, **kw)
+    assert lse.shape == (b, hq, sq) and lse.dtype == torch.float32
+    torch.testing.assert_close(lse, plain_lse, **LSE_TOL[dtype])
+    assert torch.equal(out, flash_attention(q, k, v, **kw))
+
+
+def _grad_inputs(seed, b, hq, hkv, sq, sk, d, dt, cuda):
+    """Model-layout (B, S, H, D) leaves that require a gradient, and the
+    output gradient."""
+    return ([torch.from_numpy(_normal(seed + i, b, s, h, d)).to(cuda, dt)
+             .requires_grad_(True)
+             for i, (s, h) in enumerate(((sq, hq), (sk, hkv), (sk, hkv)))],
+            torch.from_numpy(_normal(seed + 3, b, sq, hq, d)).to(cuda, dt))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal,window", [
+    (4, 8, 1, 256, 256, 256, True, 0),     # gemma-2b's training shape
+    (2, 8, 8, 300, 300, 64, False, 0),     # whisper's encoder, ragged
+    (2, 8, 8, 32, 300, 64, False, 0),      # whisper's cross attention
+    (1, 16, 8, 96, 96, 128, True, 32),     # window, GQA
+    (1, 4, 4, 700, 700, 64, True, 0),      # two backward blocks
+])
+def test_flash_fn_grads_on_cuda(cuda, dtype, tol, b, hq, hkv, sq, sk, d,
+                                causal, window):
+    """FlashAttentionFn on the card (the kernel forward with its logsumexp,
+    counted; the FlashAttention-2 backward) against autograd through the
+    plain version on the same tensors."""
+    dt = TORCH_DT[dtype]
+    ins, dout = _grad_inputs(150, b, hq, hkv, sq, sk, d, dt, cuda)
+    kw = dict(causal=causal, window=window, scale=d ** -0.5)
+    before = flash_attention.launches
+    out = ops.flash_attention(*ins, **kw)
+    assert flash_attention.launches == before + 1
+    got = torch.autograd.grad(out, ins, dout)
+    plain = tref.flash_attention_ref(*(t.transpose(1, 2) for t in ins), **kw)
+    want = torch.autograd.grad(plain, ins, dout.transpose(1, 2))
+    for g, w in zip(got, want, strict=True):
+        torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol)
+        assert _grad_rms_ok(g, w)
+
+
+def _grad_rms_ok(g, w):
+    """`_rms_ok` less one output ulp an element: both gradients are summed
+    in float32 and rounded once to the inputs' dtype, and a gradient's
+    largest values are over ten times its RMS (the first causal rows see
+    few keys), so a bf16 rounding that falls the other way is ~9% of the
+    RMS by itself. What is left beyond that ulp must stay under 5%."""
+    w = w.float()
+    ulp = torch.ldexp(torch.ones_like(w), torch.frexp(w).exponent
+                      - (8 if g.dtype == torch.bfloat16 else 24))
+    excess = ((g.float() - w).abs() - ulp).clamp(min=0).max().item()
+    return excess <= 0.05 * w.pow(2).mean().sqrt().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [(2, 64, 8, 32, 16, 32),
+                                             (1, 256, 80, 64, 128, 256)])
+def test_ssd_fn_grads_on_cuda(cuda, b, s, h, p, n, chunk):
+    """SSDDiagFn on the card: the kernel forward (counted), the plain
+    version's gradient."""
+    args = [t.requires_grad_(True) for t in _ssd_args(36, b, s, h, p, n, cuda)]
+    before = ssd_diag.launches
+    y = ops.ssd_diag(*args, chunk=chunk)
+    assert ssd_diag.launches == before + 1
+    dy = torch.from_numpy(_normal(37, b, s, h, p)).to(cuda)
+    got = torch.autograd.grad(y, args, dy)
+    want = torch.autograd.grad(tref.ssd_diag_ref(*args, chunk=chunk), args,
+                               dy)
+    for g, w in zip(got, want, strict=True):
+        torch.testing.assert_close(g, w, rtol=2e-5, atol=2e-5)
+
+
+def _to(tree, dev):
+    """A copy of the tree's tensors on `dev` (training updates in place)."""
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev, copy=True)
+
+
+def _reduced_f32(arch):
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+
+
+@pytest.mark.gpu
+def test_backward_sets_every_gradient_on_cuda(cuda):
+    """loss.backward() on the card fills wq, wk and wv of every layer (the
+    kernel's forward alone has no grad_fn) with the CPU's gradients."""
+    from repro_torch.models import dummy_batch, init_params, loss_fn
+    cfg = _reduced_f32("gemma-2b")
+    params = init_params(cfg, seed=0, device="cpu")
+    batch = dummy_batch(torch.Generator().manual_seed(1), cfg, 2, 32)
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        p = _to(params, dev)
+        leaves = [t.requires_grad_(True) for layer in p["layers"]
+                  for t in layer["mix"].values()]
+        ops.reset_launches()
+        total, _ = loss_fn(p, _to(batch, dev), cfg=cfg)
+        total.backward()
+        if dev.type == "cuda":
+            assert ops.kernel_launches()["flash_attention"] == cfg.n_layers
+        assert all(t.grad is not None and t.grad.abs().sum() > 0
+                   for t in leaves)
+        grads.append([t.grad.cpu() for t in leaves])
+    for g, w in zip(*grads, strict=True):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_whisper_tokens_card_vs_cpu(cuda):
+    """A reduced float32 whisper at the model level: the card's greedy
+    tokens are the CPU's, with the flash kernel once an encoder, decoder
+    self and cross layer a prefill and once a cross layer a decode step, and
+    the decode kernel once a decoder layer a step."""
+    from repro_torch.models import init_params
+    from repro_torch.models.model import greedy_generate
+    cfg = _reduced_f32("whisper-base")
+    params = init_params(cfg, seed=0, device="cpu")
+    prompts = [[(7 * i + j) % cfg.vocab_size for j in range(n)]
+               for i, n in enumerate((4, 9, 17))]
+    frames = torch.from_numpy(_normal(160, 3, cfg.encoder_seq_len,
+                                      cfg.d_model))
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        ops.reset_launches()
+        out.append(greedy_generate(
+            _to(params, dev), prompts, cfg=cfg, steps=6, max_seq=64,
+            extras={"audio_frames": frames.to(dev)}))
+        if dev.type == "cuda":
+            n = cfg.n_layers
+            launches = ops.kernel_launches()
+            assert launches["flash_attention"] == 3 * 3 * n + 6 * n
+            assert launches["decode_attention"] == 6 * n
+    assert out[0] == out[1]
+
+
+TRAIN_ARCHS = ["gemma-2b", "gemma3-12b", "mamba2-2.7b", "deepseek-moe-16b",
+               "mixtral-8x7b", "minicpm3-4b", "recurrentgemma-2b",
+               "qwen2-vl-2b", "whisper-base"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("microbatches", [1, 2])
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_train_steps_card_vs_cpu(cuda, arch, microbatches):
+    """Three AdamW steps of a reduced float32 model on the card and on the
+    CPU from the same weights and batches: losses within 1e-4, parameters
+    within 5e-3 (the JAX tests' step tolerance), the kernels on the card."""
+    from repro_torch.models import dummy_batch, init_params
+    from repro_torch.training import (
+        AdamWConfig, init_opt_state, make_train_step,
+    )
+    from repro_torch.training.optimizer import leaves
+    cfg = _reduced_f32(arch)
+    params = init_params(cfg, seed=0, device="cpu")
+    gen = torch.Generator().manual_seed(2)
+    batches = [dummy_batch(gen, cfg, 2, 32) for _ in range(3)]
+    step = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=1),
+                           microbatches=microbatches)
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        p = _to(params, dev)
+        state = init_opt_state(p)
+        ops.reset_launches()
+        losses = []
+        for batch in batches:
+            p, state, m = step(p, state, _to(batch, dev))
+            losses.append(float(m["loss"]))
+        if dev.type == "cuda":
+            launches = ops.kernel_launches()
+            kernel = "ssd_diag" if cfg.family == "ssm" else "flash_attention"
+            assert launches[kernel] > 0
+        runs.append((losses, [t.cpu() for t in leaves(p)]))
+    (card_loss, card_p), (cpu_loss, cpu_p) = runs
+    np.testing.assert_allclose(card_loss, cpu_loss, rtol=1e-4, atol=1e-4)
+    assert all(np.isfinite(card_loss))
+    for a, b in zip(card_p, cpu_p, strict=True):
+        torch.testing.assert_close(a, b, rtol=5e-3, atol=5e-3)

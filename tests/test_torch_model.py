@@ -182,32 +182,28 @@ def test_entry_points_default_to_cuda():
             init_cache(tcfg, 1, 8)
 
 
-@pytest.mark.parametrize("arch", ["whisper-base"])
-def test_block_program_refuses_unported_families(arch):
-    """The dense, MoE, MLA, Mamba-2, RG-LRU hybrid and M-RoPE families are
-    ported; encoder-decoder models raise rather than run a wrong program."""
-    _, tcfg = config_pair(arch)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        block_program(tcfg)
-
-
 @pytest.mark.parametrize("arch,n_layers", [("recurrentgemma-2b", 3),
                                            ("recurrentgemma-2b", 5),
-                                           ("qwen2-vl-2b", 2)])
+                                           ("qwen2-vl-2b", 2),
+                                           ("whisper-base", 6)])
 def test_block_program_matches_jax(arch, n_layers):
     """The RG-LRU hybrid's (rec, rec, attn(window)) superblock with its
-    tail (at 5 layers: one superblock and (rec, rec)), and qwen2-vl's plain
-    attention stack: the JAX package's programs."""
+    tail (at 5 layers: one superblock and (rec, rec)), qwen2-vl's plain
+    attention stack and whisper's decoder of attn(full, cross) layers: the
+    JAX package's programs."""
     jcfg, tcfg = config_pair(arch, n_layers=n_layers)
     jprog, tprog = jax_block_program(jcfg), block_program(tcfg)
 
     def specs(seq):
-        return [(s.kind, s.window, s.moe) for s in seq]
+        return [(s.kind, s.window, s.moe, s.cross) for s in seq]
 
     for part in ("head", "superblock", "tail"):
-        assert not any(s.cross for s in getattr(jprog, part))
         assert specs(getattr(tprog, part)) == specs(getattr(jprog, part))
     assert tprog.n_superblocks == jprog.n_superblocks
     assert tprog.n_layers == jprog.n_layers == n_layers
     if arch == "recurrentgemma-2b" and n_layers == 5:
-        assert specs(tprog.tail) == [("rec", 0, False)] * 2
+        assert specs(tprog.tail) == [("rec", 0, False, False)] * 2
+    if arch == "whisper-base":
+        assert specs(tprog.layers()) == [("attn", 0, False, True)] * 6
+    else:
+        assert not any(s.cross for s in tprog.layers())
