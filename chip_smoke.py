@@ -72,7 +72,35 @@ fails:
    train steps (one and two microbatches) of a reduced float32 model of
    each family, card against CPU. Phase 3 also holds the non-causal
    flash rows at whisper's shapes, the kernel's logsumexp output and
-   FlashAttentionFn's gradients at gemma-2b's training shape.
+   FlashAttentionFn's gradients at gemma-2b's training shape;
+11. sharded: the single-rank references first (then freed), then 4 ranks
+   spawned on the one card over gloo on a (2, 2) ("data", "model") mesh,
+   each drawing the full weights from the seed a layer at a time and
+   keeping its shard: full-width gemma-2b prefill and a scalar-position
+   decode (its cache's sequence split over "model": the context-parallel
+   decode, the decode kernel writing its logsumexp) and the sharded
+   engine serving phase 4's requests (tok/s, host launches a step,
+   per-rank peak memory); full-width deepseek-moe-16b cut to 6 layers
+   with `ep_a2a` and the constraint form in bf16 (printed beside one
+   rank's, with one rank's bf16 distance from float32 at two weight
+   seeds), then in float32 the constraint form through the model and the
+   `ep_a2a` layer alone, each within 0.1% of the RMS of one rank's dense
+   dispatch; a sharded train step of full-width gemma-2b, its loss,
+   gradient norm, update norm and last layer's weights and moments held
+   to one rank's step by gates that a step on half the batch fails;
+   reduced float32 gemma-2b and deepseek (constraint form) engines against
+   one CPU process. gemma-2b's bf16 logits are held to the float32 model
+   (no further than 1.25x one rank's bf16 run); it prints the collectives
+   by kind and bytes. Phase 3 also holds the decode kernel's logsumexp and
+   the CP decode body (each shard's decode, then the combine) against
+   their plain versions.
+
+`python3 chip_smoke.py --step-launches SRC ARCH...` is a measurement, not
+the smoke: with `repro_torch` imported from SRC (a tree's `src`, so that two
+trees compare in one call), it serves the launcher's 8 requests on each
+full-width single-device ARCH engine (mixtral-8x7b cut to phase 8's 4
+layers) twice, cold then warm, under torch.profiler, and prints a JSON line
+an ARCH: the host's kernel launches divided by the traced decode steps.
 
 `--profile` also traces the warm engine runs of phases 4, 5, 8 and 9 and
 one more full-width gemma-2b train step in phase 10 with torch.profiler
@@ -85,6 +113,7 @@ last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -113,6 +142,8 @@ LIBRARY = {
                        "through a page table",
     "ssd_diag": "none: no single PyTorch call computes the SSD diagonal "
                 "block",
+    "decode_attention_lse": "none: no public PyTorch call returns the "
+                            "logsumexp beside a masked decode's output",
 }
 SERVE_ARGS = ["--arch", "gemma-2b", "--requests", "8", "--max-new", "16",
               "--max-batch", "4", "--max-seq", "256", "--device", "cuda"]
@@ -427,6 +458,101 @@ def check_decode(case, dev):
         bound_ms=bms, bound_by=by)
 
 
+def check_decode_lse(case, dev):
+    """The decode kernel with its logsumexp against the plain versions."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention
+    hq, hkv, s, d, valid, dtype, label = case
+    b = len(valid)
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    q = torch.randn(b, hq, d, generator=gen, device=dev).to(dt)
+    k = torch.randn(b, hkv, s, d, generator=gen, device=dev).to(dt)
+    v = torch.randn(b, hkv, s, d, generator=gen, device=dev).to(dt)
+    vl = torch.tensor(valid, dtype=torch.int32, device=dev)
+    scale = d ** -0.5
+
+    def run():
+        return decode_attention(q, k, v, vl, scale=scale, return_lse=True)
+    out, lse = run()
+    torch.cuda.synchronize()
+    plain, plain_lse = ref.decode_attention_lse_ref(q, k, v, vl, scale=scale)
+    err, rel, ok = close(out, plain, dtype)
+    live = vl > 0
+    lse_err = (lse - plain_lse)[live].abs().max().item()
+    # a row with no valid slot: -1e30 + log(S), which weighs zero
+    empty_ok = bool((lse[~live] <= -1e29).all())
+    lse_ok = lse_err <= LSE_TOL[dtype] * max(
+        1.0, plain_lse[live].abs().max().item())
+    slots = sum(min(x, s) if x > 0 else s for x in valid)
+    elem = q.element_size()
+    n_bytes = elem * (2 * b * hq * d + 2 * hkv * slots * d) + 4 * b \
+        + 4 * b * hq
+    bms, by = bound_ms(n_bytes, 4.0 * d * hq * slots, dtype)
+    return dict(
+        kernel="decode_attention_lse", label=label, shape=dict(
+            b=b, hq=hq, hkv=hkv, s=s, d=d, valid_len=list(valid)),
+        dtype=dtype, max_abs_err=err, err_rms=rel, lse_err=lse_err,
+        ok=ok and lse_ok and empty_ok, ms=time_ms(run), fn=run,
+        plain_ms=time_ms(lambda: ref.decode_attention_lse_ref(
+            q, k, v, vl, scale=scale)),
+        library_ms=None, bound_ms=bms, bound_by=by)
+
+
+def check_cp(case, dev):
+    """The CP decode body on one process: each shard's decode with its
+    logsumexp over its slice of the cache, then the combine, against the
+    JAX body's einsum form and the whole-cache decode."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention
+    hq, hkv, s, d, valid, shards, dtype, label = case
+    b = len(valid)
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q = torch.randn(b, hq, d, generator=gen, device=dev).to(dt)
+    k = torch.randn(b, hkv, s, d, generator=gen, device=dev).to(dt)
+    v = torch.randn(b, hkv, s, d, generator=gen, device=dev).to(dt)
+    vl = torch.tensor(valid, dtype=torch.int32, device=dev)
+    sl = s // shards
+    ks = [k[:, :, i * sl:(i + 1) * sl] for i in range(shards)]
+    vs = [v[:, :, i * sl:(i + 1) * sl] for i in range(shards)]
+    vls = [torch.clamp(vl - i * sl, 0, sl).to(torch.int32)
+           for i in range(shards)]
+    scale = d ** -0.5
+
+    def run():
+        parts = [decode_attention(q, kk, vv, ll, scale=scale,
+                                  return_lse=True)
+                 for kk, vv, ll in zip(ks, vs, vls, strict=True)]
+        lse = torch.stack([p[1] for p in parts])
+        w = torch.exp(lse - lse.amax(0))
+        num = (w[..., None] * torch.stack([p[0].float() for p in parts]))
+        return (num.sum(0) / w.sum(0)[..., None]).to(dt)
+    out = run()
+    torch.cuda.synchronize()
+    plain = ref.cp_decode_ref(q, ks, vs, vls, scale=scale).to(dt)
+    whole = ref.decode_attention_ref(q, k, v, vl, scale=scale)
+    err, rel, ok = close(out, plain, dtype)
+    err_w, _, ok_w = close(out, whole, dtype)
+    slots = sum(min(x, s) if x > 0 else s for x in valid)
+    elem = q.element_size()
+    n_bytes = elem * (2 * b * hq * d + 2 * hkv * slots * d) + 4 * b
+    bms, by = bound_ms(n_bytes, 4.0 * d * hq * slots, dtype)
+    mask = (torch.arange(s, device=dev)[None, :] < vl[:, None])[:, None, None]
+    return dict(
+        kernel="cp_decode", label=label, shape=dict(
+            b=b, hq=hq, hkv=hkv, s=s, d=d, shards=shards,
+            valid_len=list(valid)),
+        dtype=dtype, max_abs_err=err, err_rms=rel, whole_err=err_w,
+        ok=ok and ok_w, ms=time_ms(run), fn=run,
+        plain_ms=time_ms(lambda: ref.cp_decode_ref(q, ks, vs, vls,
+                                                   scale=scale)),
+        library_ms=time_ms(sdpa(q[:, :, None], k, v, mask, scale)),
+        bound_ms=bms, bound_by=by)
+
+
 def check_paged(case, dev):
     import torch
     from repro_torch.kernels import ref
@@ -669,6 +795,29 @@ DECODE_CASES = [
     (16, 1, 1024, 128, [0, 1, 300, 1024], "float32", "G 16, valid 0, f32"),
     (12, 2, 256, 128, [20, 27, 33, 41], "bfloat16", "path: qwen2-vl-2b decode"),
 ]
+# the decode kernel writing each row's logsumexp (the context-parallel
+# decode's shard partial): phase 11's shard of gemma-2b's CP decode (2 rows,
+# 8 q-heads, 128 of 256 slots, one shard past the rows' lengths), and the
+# long rows of DECODE_CASES, whose device time without lse is beside them
+DECODE_LSE_CASES = [
+    (8, 1, 128, 256, [65, 0], "bfloat16", "path: gemma-2b CP shard"),
+    (8, 1, 128, 256, [65, 0], "float32", "gemma-2b CP shard, f32"),
+    (8, 1, 4096, 256, [4096] * 32, "bfloat16", "long: gemma-2b B=32 S=4096"),
+    (16, 16, 4096, 128, [4096] * 32, "bfloat16",
+     "long: deepseek-moe-16b B=32 S=4096"),
+    (16, 1, 1024, 128, [0, 1, 300, 1024], "float32", "G 16, valid 0, f32"),
+]
+# the CP decode body on one process: (hq, hkv, s, d, valid_len per row,
+# shards, dtype, label); each shard's decode-with-lse and the combine
+# against the JAX body's einsum form (ref.cp_decode_ref)
+CP_CASES = [
+    (8, 1, 256, 256, [65, 65, 65, 65], 2, "bfloat16",
+     "path: gemma-2b CP, 2 shards"),
+    (8, 1, 256, 256, [65, 65, 65, 65], 2, "float32",
+     "gemma-2b CP, 2 shards, f32"),
+    (8, 1, 4096, 256, [4096] * 32, 4, "bfloat16",
+     "long: gemma-2b B=32 S=4096, 4 shards"),
+]
 # (hq, hkv, d, page, n_pages, valid_len per row, dtype, label); shuffled
 # tables with a pad entry on page 0
 PAGED_CASES = [
@@ -764,6 +913,55 @@ TRAIN_ARGS = ["--arch", "gemma-2b", "--steps", "4", "--batch", "4", "--seq",
 TRAIN_ARCHS = ["gemma-2b", "gemma3-12b", "mamba2-2.7b", "deepseek-moe-16b",
                "mixtral-8x7b", "minicpm3-4b", "recurrentgemma-2b",
                "qwen2-vl-2b", "whisper-base"]
+# phase 11: the sharded paths, 4 ranks over gloo on a (2, 2) ("data",
+# "model") mesh of the one card. gemma-2b's context-parallel decode: 4 rows
+# of a 64-token prompt in a 256-slot cache (its sequence over "model", 128
+# slots a shard); the sharded engine serves phase 4's 8 requests.
+SHARD_MESH = (2, 2)
+CP_ROWS, CP_PROMPT, CP_SLOTS = 4, 64, 256
+SHARD_SERVE = dict(requests=8, max_new=16, max_batch=4, max_seq=256,
+                   prompt_len=(4, 24))
+SHARD_TRACED_STEPS = 4       # decode steps of rank 0's traced run
+# deepseek-moe-16b at full width with its depth cut to 6 layers (1 dense, 5
+# MoE): each expert-parallel layer re-lays its F-split experts by all-to-all
+# (0.55 GB a rank a layer through gloo), which at 28 layers would take
+# minutes; 2 rows of a 32-token prompt. Through the model the dispatches
+# keep the JAX package's capacity factor (1.25); the ep_a2a layer is also
+# held alone, at layer MOE_CHECK_LAYER on a seeded input, at capacity 16,
+# above 64 experts / top-6: an expert can take every local token, so none
+# is dropped and it holds to dense dispatch (at 8, tokens that share their
+# experts overflow: a random model's hidden states route alike)
+MOE_LAYERS, MOE_ROWS, MOE_PROMPT, MOE_CAPACITY = 6, 2, 32, 16.0
+MOE_CHECK_LAYER = 1
+# bf16 logits of an 18-layer model from random weights lie ~8% of their RMS
+# from the same weights' float32 logits on one card, and any other order of
+# the sums (a sharded run's) moves them as far (PERF.md §6): a sharded
+# gemma-2b run is held to the float32 model, no further from it than 1.25x
+# one card's bf16 run, or within REL_RMS of it. deepseek's bf16 logits move
+# far more (routing flips on near ties: 14-237% of the RMS at decode on one
+# card over two weight seeds), so its bf16 runs are printed, and its
+# float32 runs are the gates
+SHARD_VS_F32 = 1.25
+# float32 runs differ from one rank's in the order of their sums alone
+SHARD_F32_GATE = 1e-3
+# the sharded train step of full-width gemma-2b at full depth (batch 4 x
+# 256, as phase 10) against the single-rank step, with no warm-up
+# (`SHARD_ADAMW`: the default's first step, lr 3e-6, moves only the bf16
+# weights below ~1e-3).
+# Each gate lies between the sound runs' readings and those of a fault, the
+# single-rank step on half the batch (PERF.md §6): the loss (summed in
+# float32), the gradients' global norm and the update's (relative gaps),
+# and the last layer's updated weights and first moments (the ZeRO-1
+# chunks the gradients' reduce-scatter, AdamW and the gather left on each
+# rank) element by element: RMS of the difference over the RMS of one
+# rank's update (of its moment), the largest over the ranks
+SHARD_TRAIN_LAYERS = 18
+SHARD_ADAMW = dict(warmup_steps=1)
+SHARD_TRAIN_GATES = dict(loss=1e-3, grad_norm=1e-2, update_norm=1e-3,
+                         last_params=0.5, last_moments=0.1)
+# reduced float32 engines sharded on the card against one CPU process
+SHARD_SMALL = ("gemma-2b", "deepseek-moe-16b")
+SHARD_SMALL_PROMPTS = [[5, 9, 23, 7], [100, 3, 44, 12, 77, 8, 2], [31, 32, 33]]
 
 
 def small_engine(arch: str, device: str, **kw):
@@ -1263,8 +1461,633 @@ def run_whisper_and_training(run_path, paths, card: str, dev,
                 fail(f"{label}: the {kernel} kernel did not run")
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the sharded paths, 4 ranks on the one card
+# ---------------------------------------------------------------------------
+
+
+def _shard_prompts(vocab: int):
+    """Phase 4's 8 prompts (the launcher's draw)."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    lo, hi = SHARD_SERVE["prompt_len"]
+    out = []
+    for _ in range(SHARD_SERVE["requests"]):
+        plen = int(rng.integers(lo, hi))
+        out.append([int(t) for t in rng.integers(0, vocab, plen)])
+    return out
+
+
+def _cfg(arch, **kw):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, **kw) if kw else cfg
+
+
+def _cp_inputs(vocab):
+    import torch
+    gen = torch.Generator().manual_seed(11)
+    return torch.randint(0, vocab, (CP_ROWS, CP_PROMPT + 1), generator=gen)
+
+
+def _moe_inputs(vocab):
+    import torch
+    gen = torch.Generator().manual_seed(12)
+    return torch.randint(0, vocab, (MOE_ROWS, MOE_PROMPT + 1), generator=gen)
+
+
+def _train_batch(vocab):
+    import torch
+    gen = torch.Generator().manual_seed(13)
+    return {k: torch.randint(0, vocab, (4, 256), generator=gen)
+            for k in ("tokens", "labels")}
+
+
+def _prefill_decode(params, cfg, toks, slots, ctx=None):
+    """Prefill all but the last token, then one scalar-`pos` decode step:
+    (last prefill logits, decode logits) on the CPU, float32."""
+    import torch
+    from repro_torch.models import decode_step, init_cache, prefill
+    dev = params["embed"].device
+    s = toks.shape[1] - 1
+    cache = init_cache(cfg, toks.shape[0], slots, device=dev, ctx=ctx)
+    last, cache = prefill(params, {"tokens": toks[:, :s].to(dev)}, cache,
+                          cfg=cfg, ctx=ctx)
+    dec, _ = decode_step(params, toks[:, s:].to(dev), cache, s, cfg=cfg,
+                         ctx=ctx)
+    return last.float().cpu(), dec.float().cpu()
+
+
+def _small_sharded_tokens(arch, device, ctx=None):
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.training.optimizer import tree_map
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    # the CPU generator's draw, wherever the engine runs
+    params = tree_map(lambda t: t.to(device),
+                      init_params(cfg, seed=0, device="cpu", ctx=ctx))
+    eng = ServingEngine(cfg, params, max_batch=4, max_seq=64, device=device,
+                        ctx=ctx)
+    reqs = [eng.submit(p, max_new_tokens=8) for p in SHARD_SMALL_PROMPTS]
+    eng.run_until_idle()
+    out = [list(r.generated) for r in reqs]
+    del eng, params
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _single_and_f32(cfg, dev, toks, slots):
+    """One rank's bf16 run and the same weights' float32 run."""
+    import dataclasses
+    import torch
+    from repro_torch.models import init_params
+    from repro_torch.training.optimizer import tree_map
+    params = init_params(cfg, seed=0, device=dev)
+    single = _prefill_decode(params, cfg, toks, slots)
+    params = tree_map(lambda t: t.float(), params)
+    f32 = _prefill_decode(params, dataclasses.replace(cfg, dtype="float32"),
+                          toks, slots)
+    del params
+    torch.cuda.empty_cache()
+    return single, f32
+
+
+def _moe_layer_input(d_model):
+    import torch
+    gen = torch.Generator().manual_seed(14)
+    return torch.randn((MOE_ROWS, MOE_PROMPT, d_model), generator=gen)
+
+
+def _rel(got, want) -> float:
+    """Max error over the RMS of `want`."""
+    return ((got - want).abs().max() / want.pow(2).mean().sqrt()).item()
+
+
+def _single_train(cfg, dev, batch):
+    """One rank's train step: its loss, gradient norm and update norm, and
+    the last layer's updated weights and first moments (on the CPU)."""
+    import torch
+    from repro_torch.models import init_params
+    from repro_torch.training import (AdamWConfig, init_opt_state,
+                                      make_train_step)
+    from repro_torch.training.optimizer import leaves, tree_map
+    params = init_params(cfg, seed=0, device=dev)
+    old = tree_map(lambda t: t.clone(), params)
+    step = make_train_step(cfg, AdamWConfig(**SHARD_ADAMW))
+    params, opt, m = step(params, init_opt_state(params),
+                          {k: v.to(dev) for k, v in batch.items()})
+    sq = sum((a.float() - b.float()).square().sum()
+             for a, b in zip(leaves(params), leaves(old), strict=True))
+    out = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+           "update_norm": sq.sqrt().item(),
+           "last": {"p": tree_map(lambda t: t.cpu(), params["layers"][-1]),
+                    "m": tree_map(lambda t: t.cpu(), opt.m["layers"][-1])},
+           "last_old": tree_map(lambda t: t.cpu(), old["layers"][-1])}
+    del params, old, opt, step, m
+    torch.cuda.empty_cache()
+    return out
+
+
+def _train_readings(got, want, last_params, last_moments):
+    """A train step's readings against one rank's full-batch step."""
+    return {"loss": abs(got["loss"] - want["loss"]),
+            "grad_norm": abs(got["grad_norm"] / want["grad_norm"] - 1),
+            "update_norm": abs(got["update_norm"] / want["update_norm"] - 1),
+            "last_params": last_params, "last_moments": last_moments}
+
+
+def _update(new, old) -> list:
+    """new - old, leaf by leaf, in float32."""
+    from repro_torch.training.optimizer import leaves
+    return [a.float() - b.float()
+            for a, b in zip(leaves(new), leaves(old), strict=True)]
+
+
+def _tree_rel(got, want, base) -> float:
+    """RMS of got - want over the RMS of base, over the leaves of a tree."""
+    from repro_torch.training.optimizer import leaves
+    num = sum((a.float() - b.float()).square().sum() for a, b in zip(
+        leaves(got), leaves(want), strict=True))
+    den = sum(b.float().square().sum() for b in leaves(base))
+    return (num / den).sqrt().item()
+
+
+def shard_references(dev):
+    """Phase 11's single-rank runs on the card (each freed before the
+    next) and the reduced engines on the CPU."""
+    import dataclasses
+    import torch
+    from repro_torch.models import init_params
+    from repro_torch.models import moe as MOE
+    from repro_torch.training.optimizer import tree_map
+    refs = {}
+    cfg = _cfg("gemma-2b")
+    refs["cp"], refs["cp_f32"] = _single_and_f32(
+        cfg, dev, _cp_inputs(cfg.vocab_size), CP_SLOTS)
+    # deepseek: one rank's bf16 and float32 runs, dense dispatch, and the
+    # float32 MoE layer alone; a second draw of the weights (seed 1) is
+    # the witness of the bf16 run's distance from the float32 one
+    cfg = _cfg("deepseek-moe-16b", n_layers=MOE_LAYERS)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    toks = _moe_inputs(cfg.vocab_size)
+    refs["moe_bf16_gap"] = {}
+    for seed in (0, 1):
+        params = init_params(cfg, seed=seed, device=dev)
+        single = _prefill_decode(params, cfg, toks, 64)
+        params = tree_map(lambda t: t.float(), params)
+        f32 = _prefill_decode(params, cfg32, toks, 64)
+        refs["moe_bf16_gap"][seed] = [_rel(a, b) for a, b in zip(
+            single, f32, strict=True)]
+        if seed == 0:
+            refs["moe"], refs["moe_f32"] = single, f32
+            refs["moe_layer_f32"] = MOE.moe_layer(
+                params["layers"][MOE_CHECK_LAYER]["moe"],
+                _moe_layer_input(cfg.d_model).to(dev), cfg=cfg32)[0].cpu()
+        del params
+        torch.cuda.empty_cache()
+    # the train step on the whole batch, and the fault: on half of it
+    cfg = _cfg("gemma-2b", n_layers=SHARD_TRAIN_LAYERS)
+    batch = _train_batch(cfg.vocab_size)
+    refs["train"] = _single_train(cfg, dev, batch)
+    half = _single_train(cfg, dev, {k: v[:2] for k, v in batch.items()})
+    want = refs["train"]
+    refs["train_fault"] = _train_readings(
+        half, want,
+        _tree_rel(half["last"]["p"], want["last"]["p"],
+                  _update(want["last"]["p"], want["last_old"])),
+        _tree_rel(half["last"]["m"], want["last"]["m"], want["last"]["m"]))
+    refs["small"] = {arch: _small_sharded_tokens(arch, "cpu")
+                     for arch in SHARD_SMALL}
+    return refs
+
+
+def _rank_main(rank, world, port, args_path, out_path):
+    """One rank of phase 11 (spawned; the kernels are built already)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import _build, ops
+    from repro_torch.models import init_params
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import parallel as PAR
+    from repro_torch.models.transformer import block_program
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.training import (AdamWConfig, init_opt_state_sharded,
+                                      make_train_step)
+    from repro_torch.training.optimizer import leaves, tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(DEVICE)
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.set_device(0)
+        _build.load_library()
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    mesh = PAR.init_mesh(SHARD_MESH, ("data", "model"), backend="gloo")
+    ctx = PAR.ParallelContext(mesh=mesh)
+    res = {"paths": {}, "peak_gib": {}, "stages": {}}
+    t_stage = [time.perf_counter()]
+
+    def stage(name):
+        now = time.perf_counter()
+        res["stages"][name] = now - t_stage[0]
+        t_stage[0] = now
+    stage("start")
+
+    def path(label, fn):
+        """Counts to 0 just before the run, read just after."""
+        ops.reset_launches()
+        PAR.reset_collectives()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        dist.barrier()
+        t0 = time.perf_counter()
+        out = fn()
+        if on_card:
+            torch.cuda.synchronize()
+        dist.barrier()
+        res["paths"][label] = dict(
+            launches=ops.kernel_launches(), seconds=time.perf_counter() - t0,
+            collectives=PAR.collective_counts())
+        res["peak_gib"][label] = (torch.cuda.max_memory_allocated() / 2 ** 30
+                                  if on_card else 0.0)
+        return out
+
+    # full-width gemma-2b: CP prefill + decode, then the sharded engine
+    cfg = _cfg("gemma-2b")
+    params = init_params(cfg, seed=0, device=dev, ctx=ctx)
+    stage("gemma-2b init")
+    res["cp"] = path("11 gemma-2b CP decode", lambda: _prefill_decode(
+        params, cfg, _cp_inputs(cfg.vocab_size), CP_SLOTS, ctx))
+    prompts = _shard_prompts(cfg.vocab_size)
+
+    def serve():
+        eng = ServingEngine(cfg, params, max_batch=SHARD_SERVE["max_batch"],
+                            max_seq=SHARD_SERVE["max_seq"], device=dev,
+                            ctx=ctx)
+        for p in prompts:
+            eng.submit(p, max_new_tokens=SHARD_SERVE["max_new"])
+        eng.run_until_idle()
+        return eng
+    eng = path("11 gemma-2b sharded engine", serve)
+    done = list(eng.completed)
+    res["engine"] = dict(
+        requests=len(done), tokens=sum(len(r.generated) for r in done),
+        in_vocab=all(0 <= t < cfg.vocab_size for r in done
+                     for t in r.generated),
+        decode_steps=eng.n_decode_steps, prefills=eng.n_prefills)
+    stage("gemma-2b engine")
+    # warm: the same prompts again, timed; then once more with rank 0's
+    # first SHARD_TRACED_STEPS steps under torch.profiler (the host's
+    # kernel launches a step and the device's busy share)
+    for p in prompts:
+        eng.submit(p, max_new_tokens=SHARD_SERVE["max_new"])
+    if on_card:
+        torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    steps = 0
+    while eng.queue or eng.active_slots:
+        eng.step()
+        steps += 1
+    if on_card:
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    toks = sum(len(r.generated) for r in eng.completed[len(done):])
+    res["engine"].update(warm_tokens=toks, warm_s=secs, warm_steps=steps,
+                         warm_tok_per_s=toks / secs)
+    stage("gemma-2b warm")
+    for p in prompts:
+        eng.submit(p, max_new_tokens=SHARD_SERVE["max_new"])
+    for _ in range(2):          # admit and prefill first
+        eng.step()
+    prof = None
+    if rank == 0 and on_card:
+        prof = torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA])
+        prof.__enter__()
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(SHARD_TRACED_STEPS):
+        eng.step()
+    if on_card:
+        torch.cuda.synchronize()
+    traced_s = time.perf_counter() - t0
+    if prof is not None:
+        prof.__exit__(None, None, None)
+        avg = prof.key_averages()
+        res["engine"]["host_launches_per_step"] = sum(
+            e.count for e in avg if e.key in ("cudaLaunchKernel",
+                                              "cuLaunchKernelEx")
+        ) / SHARD_TRACED_STEPS
+        cuda = torch.autograd.DeviceType.CUDA
+        res["engine"]["busy_share"] = sum(
+            e.self_device_time_total for e in avg
+            if e.device_type == cuda) / 1e6 / traced_s
+    while eng.queue or eng.active_slots:
+        eng.step()
+    stage("gemma-2b traced")
+    del eng, params
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # deepseek-moe-16b: ep_a2a and the constraint form through the model
+    # in bf16; then, on the same weights in float32, the constraint form
+    # through the model and the ep_a2a layer alone at capacity MOE_CAPACITY
+    cfg = _cfg("deepseek-moe-16b", n_layers=MOE_LAYERS)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = init_params(cfg, seed=0, device=dev, ctx=ctx)
+    stage("deepseek init")
+    toks = _moe_inputs(cfg.vocab_size)
+    res["moe"] = {}
+    res["moe_layers"] = sum(s.moe for s in block_program(cfg).layers())
+    ep = dataclasses.replace(ctx, moe_expert_parallel=True)
+    for label, c in (("ep_a2a", dataclasses.replace(
+            ctx, moe_dispatch="ep_a2a")), ("expert_parallel", ep)):
+        res["moe"][label] = path(f"11 deepseek-moe-16b {label}",
+                                 lambda c=c: _prefill_decode(
+                                     params, cfg, toks, 64, c))
+    params = tree_map(lambda t: t.float(), params)
+    res["moe"]["expert_parallel_f32"] = path(
+        "11 deepseek-moe-16b expert_parallel f32",
+        lambda: _prefill_decode(params, cfg32, toks, 64, ep))
+    x = ctx.shard_batch(_moe_layer_input(cfg.d_model)).to(dev)
+    out, _ = path("11 deepseek-moe-16b ep_a2a layer f32",
+                  lambda: MOE.moe_layer_ep_a2a(
+                      params["layers"][MOE_CHECK_LAYER]["moe"], x, cfg=cfg32,
+                      ctx=ctx, capacity_factor=MOE_CAPACITY))
+    res["moe"]["ep_a2a_layer_f32"] = PAR.all_gather(
+        out, ctx, ctx.batch_spec, 0).cpu()
+    del params, x, out
+    if on_card:
+        torch.cuda.empty_cache()
+    stage("deepseek runs")
+
+    # the sharded train step of full-width gemma-2b
+    cfg = _cfg("gemma-2b", n_layers=SHARD_TRAIN_LAYERS)
+    params = init_params(cfg, seed=0, device=dev, ctx=ctx)
+    opt = init_opt_state_sharded(params, cfg, ctx)
+    old = tree_map(lambda t: t.clone(), params)
+    stage("train init")
+    res["moment_bytes"] = sum(t.numel() * 4 for t in leaves(opt.m)) * 2
+    step = make_train_step(cfg, AdamWConfig(**SHARD_ADAMW), ctx=ctx)
+    batch = {k: v.to(dev) for k, v in _train_batch(cfg.vocab_size).items()}
+    params, opt, m = path("11 gemma-2b sharded train step",
+                          lambda: step(params, opt, batch))
+    res["train"] = {k: float(v) for k, v in m.items()}
+    # the update's norm over the model: each shard's squares once
+    shapes = M.params_shapes(cfg)
+    specs = PAR.param_specs(shapes, ctx)
+
+    def held_once(new, before, spec):
+        held = math.prod(ctx.axis_size(e) for e in spec if e is not None)
+        return (new.float() - before.float()).square().sum() * held / world
+    sq = sum(leaves(PAR.map_trees(held_once, params, old, specs)))
+    dist.all_reduce(sq)
+    res["train"]["update_norm"] = sq.sqrt().item()
+    # the last layer's weights and first moments against one rank's, each
+    # rank on the part it holds
+    want = torch.load(args_path, weights_only=False)
+    local_p = PAR.shard_tree(want["p"], specs["layers"][-1], ctx)
+    local_m = PAR.shard_tree(
+        want["m"], PAR.opt_state_shardings(shapes, ctx)["layers"][-1], ctx)
+    local_old = old["layers"][-1]
+    worst = torch.tensor([
+        _tree_rel(params["layers"][-1], tree_map(lambda t: t.to(dev),
+                                                 local_p),
+                  _update(tree_map(lambda t: t.to(dev), local_p),
+                          local_old)),
+        _tree_rel(opt.m["layers"][-1], tree_map(lambda t: t.to(dev),
+                                                local_m),
+                  tree_map(lambda t: t.to(dev), local_m))])
+    dist.all_reduce(worst, op=dist.ReduceOp.MAX)
+    res["train"]["last_params"], res["train"]["last_moments"] = \
+        worst.tolist()
+    del params, old, opt, step, m, want, local_p, local_m, local_old
+    if on_card:
+        torch.cuda.empty_cache()
+    stage("train step")
+
+    # reduced float32 engines, sharded on the card
+    res["small"] = {}
+    for arch in SHARD_SMALL:
+        c = ctx if arch == "gemma-2b" else ep
+        res["small"][arch] = path(
+            f"11 reduced {arch} engine",
+            lambda arch=arch, c=c: _small_sharded_tokens(arch, dev, c))
+    stage("reduced engines")
+    res["backend"] = dist.get_backend()
+    peaks = [None] * world
+    dist.all_gather_object(peaks, res["peak_gib"])
+    res["peak_gib_by_rank"] = peaks
+    if rank == 0:
+        torch.save(res, out_path)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def shard_close(label, shard, single, f32) -> bool:
+    """A sharded bf16 run's logits against one rank's: the `close` gate
+    between them is printed; the run passes if its error against the
+    float32 model is within REL_RMS of that model's RMS or at most
+    SHARD_VS_F32 times one rank's bf16 error against it."""
+    err, rel, ok = close(shard, single, "bfloat16")
+    rms = f32.pow(2).mean().sqrt().item()
+    e_shard = (shard - f32).abs().max().item() / rms
+    e_single = (single - f32).abs().max().item() / rms
+    good = e_shard <= max(REL_RMS, SHARD_VS_F32 * e_single)
+    print(f"{label} logits: vs one rank err {err:.3e} ({100 * rel:.2f}% "
+          f"rms, close gate {'ok' if ok else 'beyond'}); against the float32 "
+          f"model sharded {100 * e_shard:.2f}%, one rank {100 * e_single:.2f}% "
+          f"of its rms {'ok' if good else 'MISMATCH'}", flush=True)
+    return good
+
+
+def run_sharded(paths, card: str, dev) -> None:
+    """Phase 11 (see the module's docstring)."""
+    import socket
+    import tempfile
+    import torch
+    import torch.multiprocessing as mp
+    t0 = time.time()
+    refs = shard_references(dev)
+    torch.cuda.empty_cache()
+    print(f"sharded: single-rank references in {time.time() - t0:.1f} s",
+          flush=True)
+    world = SHARD_MESH[0] * SHARD_MESH[1]
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    with tempfile.TemporaryDirectory() as d:
+        out_path = str(Path(d) / "rank0.pt")
+        want_path = str(Path(d) / "train_last_layer.pt")
+        torch.save(refs["train"]["last"], want_path)
+        t0 = time.time()
+        mp.spawn(_rank_main, args=(world, port, want_path, out_path),
+                 nprocs=world, join=True)
+        spawn_s = time.time() - t0
+        res = torch.load(out_path, weights_only=False)
+    print(f"sharded: {world} ranks on {card}, mesh {SHARD_MESH} (data, "
+          f"model), backend {res['backend']}, {spawn_s:.1f} s", flush=True)
+    print("  rank 0's stages (s): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in res["stages"].items()), flush=True)
+    for label, p in res["paths"].items():
+        paths[label] = p["launches"]
+        coll = {k: (v["calls"], v["bytes"]) for k, v in
+                p["collectives"].items() if v["calls"]}
+        peaks = [f"{r[label]:.2f}" for r in res["peak_gib_by_rank"]]
+        print(f"  {label}: {p['seconds']:.2f} s, launches {p['launches']}, "
+              f"collectives (calls, bytes) {coll}, peak GiB by rank "
+              f"{peaks}", flush=True)
+
+    # gemma-2b CP decode against the single rank
+    for i, what in enumerate(("prefill", "CP decode")):
+        if not shard_close(f"sharded gemma-2b {what}", res["cp"][i],
+                           refs["cp"][i], refs["cp_f32"][i]):
+            fail(f"sharded gemma-2b {what} logits differ from one rank's")
+    cp = res["paths"]["11 gemma-2b CP decode"]["launches"]
+    if cp["decode_attention_lse"] < 1 or cp["flash_attention"] < 1:
+        fail("the CP decode did not run the decode kernel with lse and "
+             "the flash kernel")
+    e = res["engine"]
+    n = SHARD_SERVE["requests"]
+    print(f"sharded engine: {e['requests']} requests, {e['tokens']} tokens; "
+          f"warm {e['warm_tokens']} tokens in {e['warm_s']:.3f} s "
+          f"({e['warm_tok_per_s']:.1f} tok/s), {e['warm_steps']} steps, "
+          f"{e.get('host_launches_per_step', 0):.0f} host launches a step "
+          f"(rank 0), device busy {100 * e.get('busy_share', 0):.1f}% "
+          f"(rank 0) on {card}", flush=True)
+    if e["requests"] != n or e["tokens"] != n * SHARD_SERVE["max_new"] \
+            or not e["in_vocab"]:
+        fail("the sharded engine did not finish every request in the "
+             "vocabulary")
+    eng_l = res["paths"]["11 gemma-2b sharded engine"]["launches"]
+    if min(eng_l["flash_attention"], eng_l["decode_attention_lse"]) < 1:
+        fail("the sharded engine did not run the flash and CP decode kernels")
+    gaps = refs["moe_bf16_gap"]
+    print("deepseek-moe-16b one rank, bf16 vs float32 (prefill, decode) of "
+          "the float32 rms: " + ", ".join(
+              f"seed {k} {100 * a:.2f}% / {100 * b:.2f}%"
+              for k, (a, b) in gaps.items()), flush=True)
+    for label in ("ep_a2a", "expert_parallel"):
+        for i, what in enumerate(("prefill", "decode")):
+            got = res["moe"][label][i]
+            if got.shape != refs["moe"][i].shape \
+                    or not torch.isfinite(got).all():
+                fail(f"deepseek {label} {what}: logits {tuple(got.shape)} "
+                     f"not finite or not of one rank's shape")
+            print(f"sharded deepseek-moe-16b {label} {what}, bf16 (printed, "
+                  f"not held: routing flips on near ties): "
+                  f"{100 * _rel(got, refs['moe'][i]):.2f}% from one rank's "
+                  f"dense dispatch, {100 * _rel(got, refs['moe_f32'][i]):.2f}"
+                  f"% from the float32 model (one rank's "
+                  f"{100 * gaps[0][i]:.2f}%)", flush=True)
+    held = [(f"expert_parallel {w}, through the model", g, r) for w, g, r in
+            zip(("prefill", "decode"), res["moe"]["expert_parallel_f32"],
+                refs["moe_f32"], strict=True)]
+    held.append((f"ep_a2a layer {MOE_CHECK_LAYER} alone at capacity "
+                 f"{MOE_CAPACITY:g}", res["moe"]["ep_a2a_layer_f32"],
+                 refs["moe_layer_f32"]))
+    for what, got, want in held:
+        rel = _rel(got, want)
+        print(f"sharded deepseek-moe-16b {what}, float32, vs one rank's "
+              f"float32 dense dispatch: {100 * rel:.4f}% of its rms (gate "
+              f"{100 * SHARD_F32_GATE:.2f}%)", flush=True)
+        if got.shape != want.shape or not rel <= SHARD_F32_GATE:
+            fail(f"deepseek {what}: float32 output differs")
+    a2a = res["paths"]["11 deepseek-moe-16b ep_a2a"]["collectives"][
+        "all-to-all"]
+    moe_layers = res["moe_layers"]
+    print(f"ep_a2a all-to-all: {a2a['calls']} calls, "
+          f"{a2a['bytes'] / moe_layers / 2 / 2 ** 20:.1f} MiB a layer a "
+          f"forward on rank 0 (5 a layer: 3 re-lay the experts, 2 move the "
+          f"rows)", flush=True)
+    if a2a["calls"] != 5 * moe_layers * 2:
+        fail("ep_a2a did not run its all-to-alls")
+    t, want, fault = res["train"], refs["train"], refs["train_fault"]
+    got = _train_readings(t, want, t["last_params"], t["last_moments"])
+    print(f"sharded train step (gemma-2b, {SHARD_TRAIN_LAYERS} layers, full "
+          f"width): loss {t['loss']:.5f}, grad_norm {t['grad_norm']:.5f}, "
+          f"update_norm {t['update_norm']:.6f}; one rank {want['loss']:.5f}, "
+          f"{want['grad_norm']:.5f}, {want['update_norm']:.6f}; moments "
+          f"{res['moment_bytes'] / 2 ** 30:.2f} GiB a rank", flush=True)
+    for k, gate in SHARD_TRAIN_GATES.items():
+        print(f"  {k}: sharded {got[k]:.3e}, gate {gate:g}, the fault (one "
+              f"rank on half the batch) {fault[k]:.3e}", flush=True)
+        if not got[k] <= gate:
+            fail(f"the sharded train step's {k} is off the single rank's")
+    if all(fault[k] <= gate for k, gate in SHARD_TRAIN_GATES.items()):
+        fail("the train step's gates pass a step on half the batch")
+    for arch in SHARD_SMALL:
+        same = res["small"][arch] == refs["small"][arch]
+        print(f"reduced f32 {arch} engine, {world} ranks on the card vs one "
+              f"CPU process: {'same' if same else 'DIFFERENT'} greedy tokens",
+              flush=True)
+        if not same:
+            fail(f"sharded reduced {arch}: {res['small'][arch]} vs "
+                 f"{refs['small'][arch]}")
+
+
+def step_launches(src: str, archs) -> None:
+    """Host kernel launches a step of warm single-device engines (see the
+    module's docstring)."""
+    sys.path.insert(0, str(Path(src).resolve()))
+    import numpy as np
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.models import init_params
+    from repro_torch.serving.engine import ServingEngine
+    _build.build()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    for arch in archs:
+        cfg = _cfg(arch, **({"n_layers": 4} if arch == "mixtral-8x7b"
+                            else {}))
+        eng = ServingEngine(cfg, init_params(cfg, seed=0, device="cuda"),
+                            max_batch=4, max_seq=256, device="cuda")
+        rng = np.random.default_rng(0)
+        prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size,
+                                                 int(rng.integers(4, 24)))]
+                   for _ in range(8)]
+        runs = {}
+        for run in ("cold", "warm"):
+            for p in prompts:
+                eng.submit(p, max_new_tokens=16)
+            acts = [torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]
+            steps = 0
+            with torch.profiler.profile(activities=acts) as prof:
+                while eng.queue or eng.active_slots:
+                    eng.step()
+                    steps += 1
+                torch.cuda.synchronize()
+            launches = sum(e.count for e in prof.key_averages() if e.key in (
+                "cudaLaunchKernel", "cuLaunchKernelEx"))
+            runs[run] = dict(steps=steps, launches=launches,
+                             per_step=launches / steps)
+        print(json.dumps({"arch": arch, "card": card, **runs}), flush=True)
+        del eng
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> None:
-    profile = "--profile" in (sys.argv[1:] if argv is None else argv)
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--step-launches"]:
+        if len(argv) < 3:
+            fail("usage: chip_smoke.py --step-launches SRC ARCH...")
+        step_launches(argv[1], argv[2:])
+        return
+    profile = "--profile" in argv
     try:
         import torch
     except ImportError:
@@ -1321,6 +2144,8 @@ def main(argv=None) -> None:
     rows += [check_flash(case, dev, causal=causal, lse=True)
              for case, causal in LSE_CASES]
     rows += [check_flash_grad(case, dev) for case in GRAD_CASES]
+    rows += [check_decode_lse(case, dev) for case in DECODE_LSE_CASES]
+    rows += [check_cp(case, dev) for case in CP_CASES]
     fns = [r.pop("fn") for r in rows]
     yard = [(r, r.pop("dense_fn")) for r in rows if "dense_fn" in r]
     times = device_us(fns + [fn for _, fn in yard])
@@ -1342,6 +2167,8 @@ def main(argv=None) -> None:
             extra += f" lse_err={r['lse_err']:.3e}"
         if "bwd_ms" in r:
             extra += f" bwd_ms={r['bwd_ms']:.4f}"
+        if "whole_err" in r:
+            extra += f" whole_err={r['whole_err']:.3e}"
         print(f"{r['kernel']:16s} {r['dtype']:8s} {r['label']:38s} "
               f"err={r['max_abs_err']:.3e} ({100 * r['err_rms']:.2f}% "
               f"rms){extra} ms={r['ms']:.4f} "
@@ -1577,6 +2404,10 @@ def main(argv=None) -> None:
     # 10. whisper-base at the model level, then training
     run_whisper_and_training(run_path, paths, name, dev, profile)
 
+    # 11. the sharded paths: 4 ranks on the one card
+    torch.cuda.empty_cache()
+    run_sharded(paths, name, dev)
+
     # result
     path_rows = {}
     for r in rows:
@@ -1590,9 +2421,16 @@ def main(argv=None) -> None:
                             "src/repro/kernels/paged_attention.py:75"),
         "ssd_diag": ("src/repro_torch/kernels/csrc/ssd_diag.cu",
                      "src/repro/kernels/ssd_diag.py:46"),
+        # the decode kernel writing each row's logsumexp (phase 11's CP
+        # decode), counted apart
+        "decode_attention_lse": (
+            "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "src/repro/kernels/decode_attention.py:64"),
     }
     kernels = []
     for kname, r in path_rows.items():
+        if kname not in sources:     # the CP body's rows: no one kernel
+            continue
         by_path = {p: c[kname] for p, c in paths.items() if c[kname]}
         if not by_path:
             fail(f"{kname} was launched on no main path")

@@ -110,8 +110,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.repro_flash_selftest.argtypes = [vp, vp, vp, vp, vp, i32, vp]
     lib.repro_flash_selftest.restype = i32
     lib.repro_decode_attention.argtypes = [
-        vp, vp, vp, vp, vp, vp, strides, i32, i32, i32, i32, i32, i32, i32,
-        f32, i32, vp]
+        vp, vp, vp, vp, vp, vp, vp, strides, i32, i32, i32, i32, i32, i32,
+        i32, f32, i32, vp]
     lib.repro_decode_attention.restype = i32
     lib.repro_paged_attention.argtypes = [
         vp, vp, vp, vp, vp, vp, vp, strides, i32, i32, i32, i32, i32, i32, i32,

@@ -34,23 +34,24 @@ namespace {
 
 template <typename T, int D>
 cudaError_t dense_dim(const void* q, const void* k, const void* v, const int* vl, void* o,
-                      float* ws, const int64_t* st, int b, int hq, int hkv, int s_len,
+                      float* ws, float* lse, const int64_t* st, int b, int hq, int hkv, int s_len,
                       int split_len, int n_split, float scale, cudaStream_t s) {
   const DenseKV<T> kv{static_cast<const T*>(k), static_cast<const T*>(v),
                       Strides{st[2], st[3], st[4]}, Strides{st[5], st[6], st[7]}};
-  return dispatch_group<T, D, D>(q, kv, vl, o, ws, Strides2{st[0], st[1]},
+  return dispatch_group<T, D, D>(q, kv, vl, o, ws, lse, Strides2{st[0], st[1]},
                                  Strides2{st[8], st[9]}, b, hq, hkv, s_len, split_len, n_split,
                                  scale, s);
 }
 
 template <typename T>
 cudaError_t dispatch_dim(int d, const void* q, const void* k, const void* v, const int* vl,
-                         void* o, float* ws, const int64_t* st, int b, int hq, int hkv,
-                         int s_len, int split_len, int n_split, float scale, cudaStream_t s) {
+                         void* o, float* ws, float* lse, const int64_t* st, int b, int hq,
+                         int hkv, int s_len, int split_len, int n_split, float scale,
+                         cudaStream_t s) {
   switch (d) {
-    case 64: return dense_dim<T, 64>(q, k, v, vl, o, ws, st, b, hq, hkv, s_len, split_len, n_split, scale, s);
-    case 128: return dense_dim<T, 128>(q, k, v, vl, o, ws, st, b, hq, hkv, s_len, split_len, n_split, scale, s);
-    case 256: return dense_dim<T, 256>(q, k, v, vl, o, ws, st, b, hq, hkv, s_len, split_len, n_split, scale, s);
+    case 64: return dense_dim<T, 64>(q, k, v, vl, o, ws, lse, st, b, hq, hkv, s_len, split_len, n_split, scale, s);
+    case 128: return dense_dim<T, 128>(q, k, v, vl, o, ws, lse, st, b, hq, hkv, s_len, split_len, n_split, scale, s);
+    case 256: return dense_dim<T, 256>(q, k, v, vl, o, ws, lse, st, b, hq, hkv, s_len, split_len, n_split, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -62,11 +63,14 @@ cudaError_t dispatch_dim(int d, const void* q, const void* k, const void* v, con
 // v (batch, head, slot), o (batch, head); k and v 16-byte aligned (pointers
 // and strides). valid_len: (B,) int32 on the card. n_split splits of
 // split_len slots; ws: the float32 partial-state workspace of
-// B * hq * n_split * (d + 2) floats, unused when n_split is 1. dtype:
-// 0 float32, 1 bfloat16. Launches the split kernel and, with more than one
-// split, the combine pass; returns the first failing launch's cudaError_t.
+// B * hq * n_split * (d + 2) floats, unused when n_split is 1. lse: null,
+// or a (B, hq) contiguous float32 output of each row's logsumexp of the
+// masked scale * q.k (the context-parallel decode combines shards by it;
+// a row with valid_len 0 gets -1e30 + log(S)). dtype: 0 float32, 1
+// bfloat16. Launches the split kernel and, with more than one split, the
+// combine pass; returns the first failing launch's cudaError_t.
 extern "C" int repro_decode_attention(const void* q, const void* k, const void* v,
-                                      const void* valid_len, void* o, void* ws,
+                                      const void* valid_len, void* o, void* ws, void* lse,
                                       const int64_t* strides, int b, int hq, int hkv,
                                       int s_len, int d, int n_split, int split_len,
                                       float scale, int dtype, void* stream) {
@@ -75,10 +79,11 @@ extern "C" int repro_decode_attention(const void* q, const void* k, const void* 
     return (int)cudaErrorInvalidValue;
   const int* vl = static_cast<const int*>(valid_len);
   float* w = static_cast<float*>(ws);
+  float* l = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)repro::dispatch_dim<float>(d, q, k, v, vl, o, w, strides, b, hq, hkv, s_len, split_len, n_split, scale, s);
+    return (int)repro::dispatch_dim<float>(d, q, k, v, vl, o, w, l, strides, b, hq, hkv, s_len, split_len, n_split, scale, s);
   if (dtype == 1)
-    return (int)repro::dispatch_dim<__nv_bfloat16>(d, q, k, v, vl, o, w, strides, b, hq, hkv, s_len, split_len, n_split, scale, s);
+    return (int)repro::dispatch_dim<__nv_bfloat16>(d, q, k, v, vl, o, w, l, strides, b, hq, hkv, s_len, split_len, n_split, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -240,7 +240,8 @@ __device__ __forceinline__ void load_tile(T* k_dst, T* v_dst, const Rows& rows, 
 template <typename T, int D, int DP, int G, typename KV>
 __global__ void __launch_bounds__(kThreads)
 decode_split_kernel(const T* __restrict__ q, KV kv, const int* __restrict__ valid_len,
-                    T* __restrict__ o, float* __restrict__ ws, Strides2 qs, Strides2 os,
+                    T* __restrict__ o, float* __restrict__ ws, float* __restrict__ lse,
+                    Strides2 qs, Strides2 os,
                     int group, int sub_len, int hq, int batch, int s_len, int split_len,
                     int n_split, float scale) {
   using R = Cfg<T, DP, G>;
@@ -422,7 +423,7 @@ decode_split_kernel(const T* __restrict__ q, KV kv, const int* __restrict__ vali
   }
   __syncthreads();
   splitkv::merge_and_store<T, G, D, R::kStates, DP>(m_s, l_s, acc_s, heads, b, h0, split,
-                                                    n_split, hq, batch, o, os.b, os.h, ws);
+                                                    n_split, hq, batch, o, os.b, os.h, ws, lse);
 }
 
 // ---------------------------------------------------------------------------
@@ -527,7 +528,8 @@ __device__ __forceinline__ void load_tile(bf16* k_dst, bf16* v_dst, const Rows& 
 template <int D, int G, typename KV>
 __global__ void __launch_bounds__(kThreads)
 decode_tc_kernel(const bf16* __restrict__ q, KV kv, const int* __restrict__ valid_len,
-                 bf16* __restrict__ o, float* __restrict__ ws, Strides2 qs, Strides2 os,
+                 bf16* __restrict__ o, float* __restrict__ ws, float* __restrict__ lse,
+                 Strides2 qs, Strides2 os,
                  int group, int hq, int batch, int s_len, int split_len, int n_split,
                  float scale) {
   using L = TcCfg<D>;
@@ -725,7 +727,7 @@ decode_tc_kernel(const bf16* __restrict__ q, KV kv, const int* __restrict__ vali
   }
   __syncthreads();
   splitkv::merge_and_store<bf16, G, D, kWarps>(m_s, l_s, acc_s, group, b, h0, split, n_split,
-                                               hq, batch, o, os.b, os.h, ws);
+                                               hq, batch, o, os.b, os.h, ws, lse);
 }
 
 }  // namespace tc
@@ -735,7 +737,7 @@ decode_tc_kernel(const bf16* __restrict__ q, KV kv, const int* __restrict__ vali
 // up to a power of two); sub_len: the q-heads of a float32 CTA.
 template <typename T, int D, int DP, int G, typename KV>
 cudaError_t launch_decode(const void* q, const KV& kv, const int* valid_len, void* o, float* ws,
-                          Strides2 qs, Strides2 os, int b, int hq, int hkv, int s_len,
+                          float* lse, Strides2 qs, Strides2 os, int b, int hq, int hkv, int s_len,
                           int split_len, int n_split, int sub_len, float scale,
                           cudaStream_t stream) {
   const int group = hq / hkv;
@@ -745,7 +747,7 @@ cudaError_t launch_decode(const void* q, const KV& kv, const int* valid_len, voi
         tc::decode_tc_kernel<D, G, KV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (attr != cudaSuccess) return attr;
     tc::decode_tc_kernel<D, G, KV><<<dim3(n_split, hkv, b), kThreads, smem, stream>>>(
-        static_cast<const T*>(q), kv, valid_len, static_cast<T*>(o), ws, qs, os, group, hq, b,
+        static_cast<const T*>(q), kv, valid_len, static_cast<T*>(o), ws, lse, qs, os, group, hq, b,
         s_len, split_len, n_split, scale);
   } else {
     using R = Cfg<T, DP, G>;
@@ -756,12 +758,12 @@ cudaError_t launch_decode(const void* q, const KV& kv, const int* valid_len, voi
     const int n_sub = (group + sub_len - 1) / sub_len;
     decode_split_kernel<T, D, DP, G, KV><<<dim3(n_split, hkv * n_sub, b), kThreads, R::kSmem,
                                            stream>>>(
-        static_cast<const T*>(q), kv, valid_len, static_cast<T*>(o), ws, qs, os, group, sub_len,
+        static_cast<const T*>(q), kv, valid_len, static_cast<T*>(o), ws, lse, qs, os, group, sub_len,
         hq, b, s_len, split_len, n_split, scale);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return err;
-  return splitkv::launch_combine<T>(ws, o, os.b, os.h, b, hq, n_split, D, stream);
+  return splitkv::launch_combine<T>(ws, o, lse, os.b, os.h, b, hq, n_split, D, stream);
 }
 
 // G is the q-heads a CTA holds rounded up to a power of two: the q-heads past
@@ -770,19 +772,19 @@ cudaError_t launch_decode(const void* q, const KV& kv, const int* valid_len, voi
 // sub-groups (10 as 5 + 5, 16 as 8 + 8).
 template <typename T, int D, int DP, typename KV>
 cudaError_t dispatch_group(const void* q, const KV& kv, const int* vl, void* o, float* ws,
-                           Strides2 qs, Strides2 os, int b, int hq, int hkv, int s_len,
+                           float* lse, Strides2 qs, Strides2 os, int b, int hq, int hkv, int s_len,
                            int split_len, int n_split, float scale, cudaStream_t s) {
   const int group = hq / hkv;
   if (group > kMaxGroup) return cudaErrorInvalidValue;
   constexpr bool f32 = std::is_same<T, float>::value;
   const int n_sub = f32 ? (group + kMaxF32Heads - 1) / kMaxF32Heads : 1;
   const int heads = (group + n_sub - 1) / n_sub;
-  if (heads == 1) return launch_decode<T, D, DP, 1>(q, kv, vl, o, ws, qs, os, b, hq, hkv, s_len, split_len, n_split, heads, scale, s);
-  if (heads == 2) return launch_decode<T, D, DP, 2>(q, kv, vl, o, ws, qs, os, b, hq, hkv, s_len, split_len, n_split, heads, scale, s);
-  if (heads <= 4) return launch_decode<T, D, DP, 4>(q, kv, vl, o, ws, qs, os, b, hq, hkv, s_len, split_len, n_split, heads, scale, s);
-  if (heads <= 8) return launch_decode<T, D, DP, 8>(q, kv, vl, o, ws, qs, os, b, hq, hkv, s_len, split_len, n_split, heads, scale, s);
+  if (heads == 1) return launch_decode<T, D, DP, 1>(q, kv, vl, o, ws, lse, qs, os, b, hq, hkv, s_len, split_len, n_split, heads, scale, s);
+  if (heads == 2) return launch_decode<T, D, DP, 2>(q, kv, vl, o, ws, lse, qs, os, b, hq, hkv, s_len, split_len, n_split, heads, scale, s);
+  if (heads <= 4) return launch_decode<T, D, DP, 4>(q, kv, vl, o, ws, lse, qs, os, b, hq, hkv, s_len, split_len, n_split, heads, scale, s);
+  if (heads <= 8) return launch_decode<T, D, DP, 8>(q, kv, vl, o, ws, lse, qs, os, b, hq, hkv, s_len, split_len, n_split, heads, scale, s);
   if constexpr (!f32)
-    return launch_decode<T, D, DP, 16>(q, kv, vl, o, ws, qs, os, b, hq, hkv, s_len, split_len, n_split, heads, scale, s);
+    return launch_decode<T, D, DP, 16>(q, kv, vl, o, ws, lse, qs, os, b, hq, hkv, s_len, split_len, n_split, heads, scale, s);
   return cudaErrorInvalidValue;
 }
 

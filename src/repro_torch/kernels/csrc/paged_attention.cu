@@ -45,7 +45,7 @@ cudaError_t paged_dim(const void* q, const void* k, const void* v, const int* ta
                       tables,
                       n_pages,
                       tiles::FastDiv(page)};
-  return dispatch_group<T, D, DP>(q, kv, vl, o, ws, Strides2{st[0], st[1]},
+  return dispatch_group<T, D, DP>(q, kv, vl, o, ws, nullptr, Strides2{st[0], st[1]},
                                   Strides2{st[8], st[9]}, b, hq, hkv, n_pages * page, split_len,
                                   n_split, scale, s);
 }

@@ -49,7 +49,8 @@ __device__ __forceinline__ void store_empty(float* ws, int b, int h0, int group,
 
 // Merge the CTA's kStates softmax states for its `group` q-heads
 // h0 .. h0 + group - 1 and store the finished rows into o when there is one
-// split, else the split's partial state into the workspace. The states lie
+// split (and, where lse is not null, each row's logsumexp m + log(l) at
+// lse[b * hq + h]), else the split's partial state into the workspace. The states lie
 // in shared memory as m_s[kStates][G], l_s[kStates][G] and
 // acc_s[kStates][G][LD] (a state that saw no slot holds m = -inf; only the
 // first D of a state's LD columns are stored). Every thread of the block
@@ -58,7 +59,8 @@ template <typename T, int G, int D, int kStates, int LD = D>
 __device__ __forceinline__ void merge_and_store(const float* m_s, const float* l_s,
                                                 const float* acc_s, int group, int b, int h0,
                                                 int split, int n_split, int hq, int batch, T* o,
-                                                int64_t os_b, int64_t os_h, float* ws) {
+                                                int64_t os_b, int64_t os_h, float* ws,
+                                                float* lse) {
   for (int i = threadIdx.x; i < group * D; i += blockDim.x) {
     const int g = i / D, c = i % D;
     float mx = -INFINITY;
@@ -75,6 +77,7 @@ __device__ __forceinline__ void merge_and_store(const float* m_s, const float* l
     }
     if (n_split == 1) {
       o[b * os_b + (h0 + g) * os_h + c] = from_f32<T>(a / fmaxf(lsum, 1e-30f));
+      if (lse != nullptr && c == 0) lse[static_cast<int64_t>(b) * hq + h0 + g] = mx + logf(lsum);
     } else {
       partial_acc(ws, b, h0 + g, split, hq, n_split, batch, D)[c] = a;
       if (c == 0) {
@@ -87,11 +90,12 @@ __device__ __forceinline__ void merge_and_store(const float* m_s, const float* l
 }
 
 // The combine pass: one CTA per (q-head, row) merges the n_split partial
-// states in float32 and writes the row of o in T.
+// states in float32 and writes the row of o in T (and, where lse is not
+// null, the row's logsumexp).
 template <typename T>
 __global__ void __launch_bounds__(128)
-combine_kernel(float* __restrict__ ws, T* __restrict__ o, int64_t os_b, int64_t os_h, int hq,
-               int n_split, int batch, int d) {
+combine_kernel(float* __restrict__ ws, T* __restrict__ o, float* __restrict__ lse, int64_t os_b,
+               int64_t os_h, int hq, int n_split, int batch, int d) {
   const int h = blockIdx.x, b = blockIdx.y;
   const float* ml = partial_ml(ws, b, h, 0, hq, n_split);
   const float* acc = partial_acc(ws, b, h, 0, hq, n_split, batch, d);
@@ -101,6 +105,7 @@ combine_kernel(float* __restrict__ ws, T* __restrict__ o, int64_t os_b, int64_t 
   for (int s = 0; s < n_split; ++s)
     if (ml[2 * s] != -INFINITY) lsum += ml[2 * s + 1] * __expf(ml[2 * s] - mx);
   const float inv = 1.f / fmaxf(lsum, 1e-30f);
+  if (lse != nullptr && threadIdx.x == 0) lse[static_cast<int64_t>(b) * hq + h] = mx + logf(lsum);
   for (int c = threadIdx.x; c < d; c += blockDim.x) {
     float a = 0.f;
     for (int s = 0; s < n_split; ++s)
@@ -110,10 +115,10 @@ combine_kernel(float* __restrict__ ws, T* __restrict__ o, int64_t os_b, int64_t 
 }
 
 template <typename T>
-cudaError_t launch_combine(float* ws, void* o, int64_t os_b, int64_t os_h, int batch, int hq,
-                           int n_split, int d, cudaStream_t stream) {
-  combine_kernel<T><<<dim3(hq, batch), 128, 0, stream>>>(ws, static_cast<T*>(o), os_b, os_h, hq,
-                                                         n_split, batch, d);
+cudaError_t launch_combine(float* ws, void* o, float* lse, int64_t os_b, int64_t os_h, int batch,
+                           int hq, int n_split, int d, cudaStream_t stream) {
+  combine_kernel<T><<<dim3(hq, batch), 128, 0, stream>>>(ws, static_cast<T*>(o), lse, os_b, os_h,
+                                                         hq, n_split, batch, d);
   return cudaGetLastError();
 }
 

@@ -14,8 +14,10 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import (DTYPES, check_aligned,
+                                                 check_last_contiguous,
                                                  check_operand)
-from repro_torch.kernels.ref import decode_attention_ref, split_plan
+from repro_torch.kernels.ref import (decode_attention_lse_ref,
+                                     decode_attention_ref, split_plan)
 
 HEAD_DIMS = (64, 128, 256)   # the dense entry's instantiations
 # q-heads per kv-head: the M rows of the bf16 kernel's one mma tile (the
@@ -66,19 +68,26 @@ def split_workspace(s: int, b: int, hq: int, hkv: int, d: int, device):
     return n_split, split_len, ws
 
 
-def decode_attention(q, k, v, valid_len, *, scale: float = 1.0):
+def decode_attention(q, k, v, valid_len, *, scale: float = 1.0,
+                     return_lse: bool = False):
     """q: (B, Hq, D); k, v: (B, Hkv, S, D); valid_len: int or (B,) int.
 
-    Returns (B, Hq, D) in q.dtype. Row b attends to cache slots
-    ``[0, valid_len[b])``; a row with valid_len 0 gets the uniform mean of
-    its V rows. Any strides whose last axis is contiguous are taken as they
-    are (the model passes (B, S, Hkv, D) caches as transposed views); on the
-    card k and v are read as 16-byte vectors, so their pointers and strides
-    must be 16-byte aligned.
+    Returns (B, Hq, D) in q.dtype, and with ``return_lse`` also each row's
+    logsumexp of the masked ``scale * q.k``, (B, Hq) float32 (the kernel
+    stores it after its merge: one store a row). Row b attends to cache
+    slots ``[0, valid_len[b])``; a row with valid_len 0 gets the uniform
+    mean of its V rows, and an lse of -1e30 + log(S). Any strides whose
+    last axis is contiguous are taken as they are (the model passes (B, S,
+    Hkv, D) caches as transposed views); on the card k and v are read as
+    16-byte vectors, so their pointers and strides must be 16-byte aligned.
+    ``decode_attention.lse_launches`` counts the launches with lse.
     """
     check_group(q.shape[1], k.shape[1])
-    if q.device.type == "cpu":
-        return decode_attention_ref(q, k, v, valid_len, scale=scale)
+    check_last_contiguous(q=q, k=k, v=v)
+    if q.device.type in ("cpu", "meta"):
+        plain = decode_attention_lse_ref if return_lse \
+            else decode_attention_ref
+        return plain(q, k, v, valid_len, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention runs on cuda or cpu, not {q.device}")
     b, hq, d = q.shape
@@ -96,6 +105,8 @@ def decode_attention(q, k, v, valid_len, *, scale: float = 1.0):
     check_aligned("v", v)
     vl = valid_lengths(valid_len, b, q.device)
     out = torch.empty_like(q)
+    lse = torch.empty((b, hq), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     n_split, split_len, ws = split_workspace(s, b, hq, hkv, d, q.device)
     strides = _build.int64_array(
         [q.stride(0), q.stride(1), *k.stride()[:3], *v.stride()[:3],
@@ -103,14 +114,19 @@ def decode_attention(q, k, v, valid_len, *, scale: float = 1.0):
     lib = _build.load_library()
     err = lib.repro_decode_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), vl.data_ptr(),
-        out.data_ptr(), None if ws is None else ws.data_ptr(), strides, b,
+        out.data_ptr(), None if ws is None else ws.data_ptr(),
+        None if lse is None else lse.data_ptr(), strides, b,
         hq, hkv, s, d, n_split, split_len, float(scale), DTYPES[q.dtype],
         _build.raw_stream(q.device))
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {err}")
     decode_attention.launches += 1
+    if return_lse:
+        decode_attention.lse_launches += 1
+        return out, lse
     return out
 
 
 decode_attention.launches = 0
+decode_attention.lse_launches = 0

@@ -38,6 +38,16 @@ def check_operand(name: str, x: torch.Tensor, dtype, device) -> None:
                          f"strides {x.stride()}")
 
 
+def check_last_contiguous(**xs) -> None:
+    """Raise unless each tensor's last axis is contiguous: the kernels'
+    contract, held on every device so that the plain version on the CPU
+    keeps it too."""
+    for name, x in xs.items():
+        if x.shape[-1] > 1 and x.stride(-1) != 1:
+            raise ValueError(f"{name} must be contiguous along head_dim, "
+                             f"strides {x.stride()}")
+
+
 def check_aligned(name: str, x: torch.Tensor) -> None:
     """Raise unless ``x`` can be read as 16-byte vectors: its pointer and
     every stride of an axis longer than 1 a multiple of 16 bytes."""
@@ -65,7 +75,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     shared memory, never in device memory) and Hq a multiple of Hkv. In bfloat16 the kernel copies 16-byte
     chunks, so pointers and strides must be 16-byte aligned.
     """
-    if q.device.type == "cpu":
+    check_last_contiguous(q=q, k=k, v=v)
+    if q.device.type in ("cpu", "meta"):
         plain = flash_attention_lse_ref if return_lse else flash_attention_ref
         return plain(q, k, v, causal=causal, window=window,
                      q_offset=q_offset, scale=scale)

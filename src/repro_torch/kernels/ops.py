@@ -48,15 +48,20 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 def decode_attention(q, k, v, valid_len, *, scale: float = 1.0,
-                     force_kernel: bool = False):
+                     force_kernel: bool = False, return_lse: bool = False):
     """q: (B, 1, Hq, D) or (B, Hq, D); k, v: (B, S, Hkv, D);
-    valid_len: int or (B,) valid cache slots per row."""
+    valid_len: int or (B,) valid cache slots per row. With ``return_lse``
+    also each row's logsumexp, (B, Hq) float32."""
     _check_kernel_device(q, force_kernel)
     squeeze = q.ndim == 4
     if squeeze:
         q = q[:, 0]
     out = _dec.decode_attention(q, k.transpose(1, 2), v.transpose(1, 2),
-                                valid_len, scale=scale)
+                                valid_len, scale=scale,
+                                return_lse=return_lse)
+    if return_lse:
+        out, lse = out
+        return (out[:, None] if squeeze else out), lse
     return out[:, None] if squeeze else out
 
 
@@ -95,11 +100,16 @@ _KERNELS = {"flash_attention": _fa.flash_attention,
 
 
 def kernel_launches() -> dict:
-    """Launch counts of the kernels since the last `reset_launches`."""
-    return {name: fn.launches for name, fn in _KERNELS.items()}
+    """Launch counts of the kernels since the last `reset_launches`, and
+    of the decode kernel's launches that wrote the logsumexp
+    (``decode_attention_lse``, a share of ``decode_attention``'s)."""
+    out = {name: fn.launches for name, fn in _KERNELS.items()}
+    out["decode_attention_lse"] = _dec.decode_attention.lse_launches
+    return out
 
 
 def reset_launches() -> None:
     for fn in _KERNELS.values():
         fn.launches = 0
+    _dec.decode_attention.lse_launches = 0
 

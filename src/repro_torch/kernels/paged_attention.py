@@ -39,7 +39,7 @@ def paged_attention(q, k_pages, v_pages, block_tables, valid_len, *,
     pool's own allocator (a ``PagedKVCache``'s) may pass False.
     """
     check_group(q.shape[1], k_pages.shape[1])
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return paged_attention_ref(q, k_pages, v_pages, block_tables,
                                    valid_len, scale=scale)
     if q.device.type != "cuda":

@@ -96,6 +96,62 @@ def decode_attention_ref(q, k, v, valid_len, *, scale: float = 1.0):
     return out.reshape(b, hq, d).to(q.dtype)
 
 
+def decode_attention_lse_ref(q, k, v, valid_len, *, scale: float = 1.0):
+    """`decode_attention_ref` with each row's logsumexp of the masked
+    ``scale * q.k`` (the finite NEG_INF mask: a row with valid_len 0 gets
+    ``NEG_INF + log(S)``, which weighs zero in `cp_combine_ref`).
+
+    Returns (out (B, Hq, D) in q.dtype, lse (B, Hq) float32)."""
+    b, hq, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    qg = q.reshape(b, hkv, hq // hkv, d).float()
+    logits = torch.einsum("bhgd,bhkd->bhgk", qg, k.float()) * scale
+    vl = torch.as_tensor(valid_len, device=q.device).reshape(-1, 1)
+    valid = torch.arange(s, device=q.device)[None, :] < vl
+    logits = torch.where(valid[:, None, None, :], logits,
+                         torch.full_like(logits, NEG_INF))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgk,bhkd->bhgd", probs, v.float())
+    return (out.reshape(b, hq, d).to(q.dtype),
+            torch.logsumexp(logits, dim=-1).reshape(b, hq))
+
+
+def cp_combine_ref(outs, lses):
+    """The context-parallel decode's combine of the shards' rows (each
+    (B, H, D)) by their logsumexps (each (B, H)):
+    ``sum_r exp(lse_r - max) out_r / sum_r exp(lse_r - max)``, float32."""
+    lse = torch.stack(lses)                           # (R, B, H)
+    w = torch.exp(lse - lse.amax(0, keepdim=True))
+    out = torch.stack([o.float() for o in outs])      # (R, B, H, D)
+    return (w[..., None] * out).sum(0) / w.sum(0)[..., None]
+
+
+def cp_decode_ref(q, ks, vs, valid_lens, *, scale: float = 1.0):
+    """The context-parallel decode body in the JAX package's einsum form:
+    each shard's (m, l, acc) over its slice of the cache (ks[r], vs[r]:
+    (B, Hkv, S_r, D); valid_lens[r]: its valid slots, (B,)), combined by
+    max and sum. q: (B, Hq, D). Returns (B, Hq, D) float32."""
+    b, hq, d = q.shape
+    hkv = ks[0].shape[1]
+    qg = q.reshape(b, hkv, hq // hkv, d).float()
+    ms, ls, accs = [], [], []
+    for k, v, vl in zip(ks, vs, valid_lens, strict=True):
+        s = torch.einsum("bhgd,bhkd->bhgk", qg, k.float()) * scale
+        valid = torch.arange(k.shape[2], device=q.device)[None, :] \
+            < torch.as_tensor(vl, device=q.device).reshape(-1, 1)
+        s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
+        m = s.amax(-1)
+        p = torch.exp(s - m[..., None])
+        ms.append(m)
+        ls.append(p.sum(-1))
+        accs.append(torch.einsum("bhgk,bhkd->bhgd", p, v.float()))
+    m_g = torch.stack(ms).amax(0)
+    corr = [torch.exp(m - m_g) for m in ms]
+    l_g = sum(lv * c for lv, c in zip(ls, corr, strict=True))
+    acc = sum(a * c[..., None] for a, c in zip(accs, corr, strict=True))
+    return (acc / torch.clamp(l_g, min=1e-30)[..., None]).reshape(b, hq, d)
+
+
 def split_plan(s: int, rows: int, sms: int) -> tuple[int, int]:
     """(n_split, split_len) of a split-KV decode over ``s`` cache slots for
     ``rows`` (batch, kv-head) pairs on a card of ``sms`` SMs.

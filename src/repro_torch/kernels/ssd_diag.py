@@ -21,7 +21,7 @@ def ssd_diag(x, dt, A, Bm, Cm, *, chunk: int = 256):
     """x: (B, S, H, P); dt: (B, S, H) post-softplus; A: (H,) negative;
     Bm, Cm: (B, S, N); all float32. Returns the diagonal-block output
     (B, S, H, P) float32; ``min(chunk, S)`` must divide S."""
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):
         return ssd_diag_ref(x, dt, A, Bm, Cm, chunk=chunk)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_diag runs on cuda or cpu, not {x.device}")

@@ -9,7 +9,9 @@ encoder's output, or from their cache at decode; the encoder's own
 attention is bidirectional and unrotated. Prefill, encoder and cross
 attention (MLA's prefill included) run on the flash kernel and decode on the
 decode kernel when the tensors lie on the card; MLA decode is latent matrix
-products, as in the JAX package. Context-parallel decode is not ported yet.
+products, as in the JAX package. With a ``ctx`` that holds a mesh the
+attention and the MLP run on this rank's shards (`models/tp.py`, with the
+context-parallel decode).
 """
 from __future__ import annotations
 
@@ -116,12 +118,24 @@ def init_mlp(gen, d: int, hidden: int, dtype, device=None):
     }
 
 
-def mlp(p, x, activation: str):
+def mlp(p, x, activation: str, ctx=None, hidden: int = 0):
+    """The gated MLP; under a mesh (``ctx``) on this rank's columns of the
+    ``hidden`` units, summed over the model axis."""
+    if ctx is not None and ctx.mesh is not None:
+        from repro_torch.models import tp as TP
+        if not hidden:
+            raise ValueError("a sharded mlp needs its whole hidden size")
+        return TP.mlp(p, x, activation, ctx, hidden)
+    return mlp_hidden(p, x, activation) @ p["w_down"]
+
+
+def mlp_hidden(p, x, activation: str):
+    """The gated MLP's hidden units, act(x @ w_gate) * (x @ w_up)."""
     gate = x @ p["w_gate"]
     up = x @ p["w_up"]
     act = F.gelu(gate, approximate="tanh") if activation == "geglu" \
         else F.silu(gate)
-    return (act * up) @ p["w_down"]
+    return act * up
 
 
 # ---------------------------------------------------------------------------
@@ -181,7 +195,9 @@ def update_cache_seq(cache_arr, new, pos):
     s, cache_len = new.shape[1], cache_arr.shape[1]
     pos = torch.as_tensor(pos, device=cache_arr.device)
     if pos.ndim == 0:
-        start = min(max(int(pos), 0), cache_len - s)
+        # a meta tensor has no value: any start serves the cost model
+        start = 0 if pos.device.type == "meta" \
+            else min(max(int(pos), 0), cache_len - s)
         cache_arr[:, start:start + s] = new
         return cache_arr
     start = pos.long().clamp(0, cache_len - s)
@@ -193,7 +209,8 @@ def update_cache_seq(cache_arr, new, pos):
 
 def attention_layer(p, x, *, cfg: ModelConfig, mode: str, cache=None,
                     pos=None, window: int = 0, positions=None, enc_out=None,
-                    enc_cache=None, causal: bool = True):
+                    enc_cache=None, causal: bool = True, ctx=None,
+                    cspec=None):
     """One attention op (no residual/norm).
 
     mode: "train" | "prefill" | "decode" | "encode". Returns (out, cache').
@@ -204,8 +221,16 @@ def attention_layer(p, x, *, cfg: ModelConfig, mode: str, cache=None,
     "v"} it is cross attention: queries from x, keys and values from the
     encoder (projected here, or cached), bidirectional and unrotated; it
     returns the keys and values as its cache. RoPE applies only where
-    ``causal`` (the encoder's self-attention has none).
+    ``causal`` (the encoder's self-attention has none). Under a mesh
+    (``ctx``) it runs on this rank's shards (`tp.attention_layer`; ``cspec``
+    the cache's k/v spec).
     """
+    if ctx is not None and ctx.mesh is not None:
+        from repro_torch.models import tp as TP
+        return TP.attention_layer(
+            p, x, cfg=cfg, ctx=ctx, mode=mode, cache=cache, cspec=cspec,
+            pos=pos, window=window, positions=positions, enc_out=enc_out,
+            enc_cache=enc_cache, causal=causal)
     ad = attn_dims(cfg)
     b, s, _ = x.shape
     scale = 1.0 / math.sqrt(ad.head_dim)

@@ -17,6 +17,7 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import parallel as PAR
 from repro_torch.models import transformer as T
 from repro_torch.models.parallel import resolve_device
 
@@ -25,29 +26,52 @@ from repro_torch.models.parallel import resolve_device
 # ---------------------------------------------------------------------------
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device=None):
-    """Random weights for `cfg` on `device` (CUDA unless named)."""
+def init_params(cfg: ModelConfig, seed: int = 0, device=None, ctx=None):
+    """Random weights for `cfg` on `device` (CUDA unless named). Under a
+    mesh (``ctx``) only this rank's shards are kept: each leaf is drawn
+    whole from the same generator stream, one layer at a time, cut by
+    `parallel.param_specs` and freed, so every rank holds the values of
+    the single-device draw."""
     dev = resolve_device(device)
     # the meta device (`params_shapes`) draws nothing
     gen = None if dev.type == "meta" \
         else torch.Generator(device=dev).manual_seed(seed)
     dt = L.torch_dtype(cfg.dtype)
-    params = {
-        "embed": L.dense_init(gen, (cfg.vocab_size, cfg.d_model), scale=0.02,
-                              dtype=dt, device=dev),
-        "layers": T.init_stack(gen, cfg, dev),
-        "final_norm": L.init_rmsnorm(cfg.d_model, dev),
-    }
+    if PAR.is_sharded(ctx):
+        specs = PAR.param_specs(params_shapes(cfg), ctx)
+
+        def place(tree, spec):
+            return PAR.shard_tree(tree, spec, ctx)
+    else:
+        specs = None
+
+        def place(tree, spec):
+            return tree
+
+    def at(key, i=None):
+        if specs is None:
+            return None
+        return specs[key] if i is None else specs[key][i]
+
+    params = {"embed": place(L.dense_init(
+        gen, (cfg.vocab_size, cfg.d_model), scale=0.02, dtype=dt,
+        device=dev), at("embed"))}
+    params["layers"] = [
+        place(T.init_layer(gen, spec, cfg, dev), at("layers", i))
+        for i, spec in enumerate(T.block_program(cfg).layers())]
+    params["final_norm"] = L.init_rmsnorm(cfg.d_model, dev)
     if not cfg.tie_embeddings:
-        params["unembed"] = L.dense_init(
+        params["unembed"] = place(L.dense_init(
             gen, (cfg.vocab_size, cfg.d_model),
-            scale=1.0 / math.sqrt(cfg.d_model), dtype=dt, device=dev)
+            scale=1.0 / math.sqrt(cfg.d_model), dtype=dt, device=dev),
+            at("unembed"))
     if cfg.enc_dec:
-        params["encoder"] = T.init_encoder(gen, cfg, dev)
+        params["encoder"] = place(T.init_encoder(gen, cfg, dev),
+                                  at("encoder"))
     if cfg.vision_tokens:
-        params["vision_proj"] = L.dense_init(
+        params["vision_proj"] = place(L.dense_init(
             gen, (cfg.d_model, cfg.d_model), scale=0.02, dtype=dt,
-            device=dev)
+            device=dev), at("vision_proj"))
     return params
 
 
@@ -62,8 +86,12 @@ def params_shapes(cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 
-def embed_tokens(params, tokens, cfg: ModelConfig):
-    x = params["embed"][tokens]
+def embed_tokens(params, tokens, cfg: ModelConfig, ctx=None):
+    if PAR.is_sharded(ctx):
+        from repro_torch.models import tp as TP
+        x = TP.embed_lookup(params["embed"], tokens, cfg, ctx)
+    else:
+        x = params["embed"][tokens]
     if cfg.family in ("dense", "hybrid", "vlm") and cfg.tie_embeddings:
         # gemma-family convention: scale token embeddings by sqrt(d), in the
         # embedding's own dtype
@@ -72,11 +100,11 @@ def embed_tokens(params, tokens, cfg: ModelConfig):
     return x
 
 
-def embed_inputs(params, batch, cfg: ModelConfig):
+def embed_inputs(params, batch, cfg: ModelConfig, ctx=None):
     """Token embeddings; for a VLM given ``vision_embeds`` (B, n, D), the
     first n positions take ``vision_embeds @ vision_proj`` instead (the
     stub vision tower), as in the JAX package."""
-    x = embed_tokens(params, batch["tokens"], cfg)
+    x = embed_tokens(params, batch["tokens"], cfg, ctx)
     if cfg.vision_tokens and "vision_embeds" in batch:
         e, w = batch["vision_embeds"], params["vision_proj"]
         dt = torch.promote_types(e.dtype, w.dtype)
@@ -85,7 +113,7 @@ def embed_inputs(params, batch, cfg: ModelConfig):
     return x
 
 
-def encode(params, batch, cfg: ModelConfig, mode: str = "train"):
+def encode(params, batch, cfg: ModelConfig, mode: str = "train", ctx=None):
     """The encoder's output (B, S_enc, D) for an encoder-decoder model's
     ``audio_frames``, in every mode but decode (decode never re-encodes:
     the cross keys and values were cached at prefill); None otherwise. The
@@ -98,13 +126,20 @@ def encode(params, batch, cfg: ModelConfig, mode: str = "train"):
     if frames.dtype != want:
         raise TypeError(f"audio_frames are {frames.dtype}; the model takes "
                         f"{want} frames")
+    if PAR.is_sharded(ctx):
+        return T.run_encoder(params["encoder"], frames, cfg=cfg, ctx=ctx)
     return T.run_encoder(params["encoder"], frames, cfg=cfg)
 
 
-def lm_head(params, x, cfg: ModelConfig):
-    """Logits in float32, with the optional tanh softcap."""
+def lm_head(params, x, cfg: ModelConfig, ctx=None):
+    """Logits in float32, with the optional tanh softcap (over the whole
+    vocabulary under a mesh too: gathered where it is split)."""
     w = params["embed"] if cfg.tie_embeddings else params["unembed"]
-    logits = x.float() @ w.float().t()
+    if PAR.is_sharded(ctx):
+        from repro_torch.models import tp as TP
+        logits = TP.lm_head(w, x, cfg, ctx)
+    else:
+        logits = x.float() @ w.float().t()
     if cfg.logit_softcap:
         c = cfg.logit_softcap
         logits = c * torch.tanh(logits / c)
@@ -116,8 +151,46 @@ def lm_head(params, x, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 
+def _dispatch(ctx, moe_dispatch: str) -> str:
+    return ctx.moe_dispatch if ctx is not None else moe_dispatch
+
+
+def _local_batch(batch, ctx):
+    """This rank's rows of a global batch (``positions`` is (3, B, S))."""
+    return {k: ctx.shard_batch(v, 1 if k == "positions" else 0)
+            for k, v in batch.items()}
+
+
+def _local_pos(pos, b: int, ctx):
+    if isinstance(pos, torch.Tensor) and pos.ndim == 1 and pos.shape[0] == b:
+        return ctx.shard_batch(pos)
+    return pos
+
+
+def _global_rows(x, b: int, ctx, dim: int = 0):
+    """Rows of every data rank, where the global batch of `b` was split."""
+    if PAR.is_sharded(ctx) and ctx.batch_sharded(b):
+        return PAR.all_gather(x, ctx, ctx.batch_spec, dim)
+    return x
+
+
+def _forward_local(params, batch, *, cfg, mode, cache, pos, ctx):
+    """`forward` under a mesh, on this rank's rows: (local logits,
+    cache')."""
+    b = batch["tokens"].shape[0]
+    local = _local_batch(batch, ctx)
+    enc_out = encode(params, local, cfg, mode, ctx)
+    x = embed_inputs(params, local, cfg, ctx)
+    x, new_cache, _ = T.run_stack(
+        params["layers"], x, cfg=cfg, mode=mode, cache=cache,
+        pos=_local_pos(pos, b, ctx), positions=local.get("positions"),
+        enc_out=enc_out, ctx=ctx)
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return lm_head(params, x, cfg, ctx), new_cache
+
+
 def forward(params, batch, *, cfg: ModelConfig, mode: str = "train",
-            cache=None, pos=None, moe_dispatch: str = "dense"):
+            cache=None, pos=None, moe_dispatch: str = "dense", ctx=None):
     """batch: {"tokens": (B, S) integer [, "positions": (B, S), or (3, B,
     S) for M-RoPE] [, "vision_embeds": (B, n, D) for a VLM] [,
     "audio_frames": (B, S_enc, D) for an encoder-decoder model, but at
@@ -125,9 +198,18 @@ def forward(params, batch, *, cfg: ModelConfig, mode: str = "train",
 
     Returns (logits (B, S, V) float32, cache'). The cache is updated in
     place. ``moe_dispatch`` picks the MoE layers' dispatch, "dense" or
-    "capacity", as the JAX package's ``ParallelContext.moe_dispatch``. The
-    MoE load-balance loss is `loss_fn`'s (serving ignores it, as the JAX
-    engine does)."""
+    "capacity", as the JAX package's ``ParallelContext.moe_dispatch``; a
+    ``ctx`` gives it instead. The MoE load-balance loss is `loss_fn`'s
+    (serving ignores it, as the JAX engine does).
+
+    Under a mesh (``ctx``) the parameters and cache are this rank's shards
+    and the batch is global: each rank runs its rows and the logits of
+    every row are gathered."""
+    if PAR.is_sharded(ctx):
+        logits, new_cache = _forward_local(params, batch, cfg=cfg, mode=mode,
+                                           cache=cache, pos=pos, ctx=ctx)
+        return _global_rows(logits, batch["tokens"].shape[0], ctx), new_cache
+    moe_dispatch = _dispatch(ctx, moe_dispatch)
     enc_out = encode(params, batch, cfg, mode)
     x = embed_inputs(params, batch, cfg)
     x, new_cache, _ = T.run_stack(params["layers"], x, cfg=cfg, mode=mode,
@@ -141,7 +223,7 @@ def forward(params, batch, *, cfg: ModelConfig, mode: str = "train",
 CE_CHUNK = 512
 
 
-def ce_from_hidden(params, x, labels, cfg: ModelConfig):
+def ce_from_hidden(params, x, labels, cfg: ModelConfig, ctx=None):
     """Softmax cross-entropy straight from the final hidden states, a
     sequence chunk of ``min(CE_CHUNK, S)`` at a time (one chunk when that
     does not divide S), each under `torch.utils.checkpoint`, so no chunk's
@@ -153,7 +235,7 @@ def ce_from_hidden(params, x, labels, cfg: ModelConfig):
         chunk = s
 
     def piece(xc, lc):
-        logits = lm_head(params, xc, cfg)
+        logits = lm_head(params, xc, cfg, ctx)
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1,
                             lc.long().clamp(min=0)[..., None])[..., 0]
@@ -171,11 +253,18 @@ def ce_from_hidden(params, x, labels, cfg: ModelConfig):
 
 
 def loss_fn(params, batch, *, cfg: ModelConfig, aux_weight: float = 0.01,
-            moe_dispatch: str = "dense", remat: bool = False):
+            moe_dispatch: str = "dense", remat: bool = False, ctx=None):
     """Mean next-token cross-entropy over the labels >= 0, plus
     ``aux_weight`` times the MoE load-balance loss. batch: `forward`'s
-    train batch with ``labels`` (B, S). ``remat`` checkpoints each layer.
-    Returns (total, {"loss", "moe_aux_loss"})."""
+    train batch with ``labels`` (B, S). ``remat`` checkpoints each layer
+    (a ``ctx`` gives the dispatch and ``remat`` instead). Under a mesh the
+    batch is global and each rank runs its rows; the loss is the global
+    batch's on every rank. Returns (total, {"loss", "moe_aux_loss"})."""
+    if ctx is not None:
+        moe_dispatch, remat = ctx.moe_dispatch, ctx.remat
+    if PAR.is_sharded(ctx):
+        return _loss_sharded(params, batch, cfg=cfg, aux_weight=aux_weight,
+                             remat=remat, ctx=ctx)
     enc_out = encode(params, batch, cfg)
     x = embed_inputs(params, batch, cfg)
     x, _, aux = T.run_stack(params["layers"], x, cfg=cfg, mode="train",
@@ -189,27 +278,92 @@ def loss_fn(params, batch, *, cfg: ModelConfig, aux_weight: float = 0.01,
     return total, {"loss": loss, "moe_aux_loss": aux["moe_aux_loss"]}
 
 
+def _loss_sharded(params, batch, *, cfg, aux_weight, remat, ctx):
+    local = _local_batch(batch, ctx)
+    enc_out = encode(params, local, cfg, ctx=ctx)
+    x = embed_inputs(params, local, cfg, ctx)
+    x, _, aux = T.run_stack(params["layers"], x, cfg=cfg, mode="train",
+                            positions=local.get("positions"),
+                            enc_out=enc_out, remat=remat, ctx=ctx)
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    nll, cnt = ce_from_hidden(params, x, local["labels"], cfg, ctx)
+    if ctx.batch_sharded(batch["tokens"].shape[0]):
+        both = PAR.all_reduce(torch.stack([nll, cnt]), ctx, ctx.batch_spec)
+        nll, cnt = both[0], both[1]
+    loss = nll / torch.clamp(cnt, min=1.0)
+    total = loss + aux_weight * aux["moe_aux_loss"]
+    return total, {"loss": loss, "moe_aux_loss": aux["moe_aux_loss"]}
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
-               device=None):
+               device=None, ctx=None, context_parallel: bool = False):
     """One cache dict per layer: attention {"k", "v"} of (batch, slots, Hkv,
     D), MLA {"ckv", "krope"} of (batch, slots, rank), Mamba-2 {"state",
     "conv"}. ``device="meta"`` gives the shapes alone (the paged cache
-    probes them)."""
-    return T.init_stack_cache(cfg, batch, max_seq, dtype=dtype,
-                              device=resolve_device(device))
+    probes them). Under a mesh (``ctx``) this rank's shards of each leaf,
+    cut by `launch.shardings.cache_specs_tree` (``context_parallel``: the
+    long-context decode's sequence over "data"), as a
+    `parallel.ShardedCache` that carries the specs."""
+    dev = resolve_device(device)
+    if not PAR.is_sharded(ctx):
+        return T.init_stack_cache(cfg, batch, max_seq, dtype=dtype,
+                                  device=dev)
+    from repro_torch.launch.shardings import cache_specs_tree
+    specs = cache_specs_tree(cfg, ctx, batch, max_seq, context_parallel)
+    shapes = T.init_stack_cache(cfg, batch, max_seq, dtype=dtype,
+                                device="meta")
+    local = PAR.map_trees(
+        lambda t, sp: torch.zeros(PAR.local_shape(t.shape, sp, ctx),
+                                  dtype=t.dtype, device=dev), shapes, specs)
+    return PAR.ShardedCache(local, specs)
 
 
-def prefill(params, batch, cache, *, cfg: ModelConfig):
+def input_specs(cfg: ModelConfig, shape, dtype=torch.bfloat16):
+    """Every model input of (cfg, shape) as a meta tensor, as the JAX
+    package's ``input_specs``: train {tokens, labels}, prefill {tokens},
+    decode {tokens (B, 1)}, with M-RoPE's (3, B, S) positions, a VLM's
+    vision embeddings and an encoder-decoder model's audio frames."""
+    b, s, kind = shape.global_batch, shape.seq_len, shape.kind
+
+    def sds(shp, dt):
+        return torch.empty(shp, dtype=dt, device="meta")
+
+    out = {}
+    if kind == "train":
+        out["tokens"] = sds((b, s), torch.int32)
+        out["labels"] = sds((b, s), torch.int32)
+    else:
+        out["tokens"] = sds((b, s) if kind == "prefill" else (b, 1),
+                            torch.int32)
+    seq_here = 1 if kind == "decode" else s
+    if cfg.mrope:
+        out["positions"] = sds((3, b, seq_here), torch.int32)
+    if cfg.vision_tokens and kind != "decode":
+        out["vision_embeds"] = sds((b, cfg.vision_tokens, cfg.d_model), dtype)
+    if cfg.enc_dec and kind != "decode":
+        enc_len = s if kind == "train" else cfg.encoder_seq_len
+        enc_len = min(s, 32768) if kind == "prefill" else enc_len
+        out["audio_frames"] = sds((b, enc_len, cfg.d_model), dtype)
+    return out
+
+
+def prefill(params, batch, cache, *, cfg: ModelConfig, ctx=None):
     """Run the prompt through the stack and fill the cache.
 
     Returns (last_token_logits (B, V), cache')."""
+    if PAR.is_sharded(ctx):
+        logits, new_cache = _forward_local(params, batch, cfg=cfg,
+                                           mode="prefill", cache=cache,
+                                           pos=None, ctx=ctx)
+        return _global_rows(logits[:, -1], batch["tokens"].shape[0],
+                            ctx), new_cache
     logits, new_cache = forward(params, batch, cfg=cfg, mode="prefill",
-                                cache=cache)
+                                cache=cache, ctx=ctx)
     return logits[:, -1], new_cache
 
 
 def decode_step(params, tokens, cache, pos, *, cfg: ModelConfig,
-                moe_dispatch: str = "dense", batch_extras=None):
+                moe_dispatch: str = "dense", batch_extras=None, ctx=None):
     """One decode step. tokens: (B, 1); pos: int or (B,) current positions
     (for M-RoPE all three streams take ``pos``, as in the JAX package);
     ``batch_extras`` joins the batch (an encoder-decoder model's frames are
@@ -227,7 +381,7 @@ def decode_step(params, tokens, cache, pos, *, cfg: ModelConfig,
                 1, -1, 1).expand(3, b, 1)
     logits, new_cache = forward(params, batch, cfg=cfg,
                                 mode="decode", cache=cache, pos=pos,
-                                moe_dispatch=moe_dispatch)
+                                moe_dispatch=moe_dispatch, ctx=ctx)
     return logits[:, -1], new_cache
 
 

@@ -152,12 +152,20 @@ def init_layer_cache(spec: LayerSpec, cfg: ModelConfig, batch: int,
 
 def apply_layer(spec: LayerSpec, p, x, *, cfg: ModelConfig, mode: str,
                 cache=None, pos=None, positions=None,
-                moe_dispatch: str = "dense", enc_out=None):
+                moe_dispatch: str = "dense", enc_out=None, ctx=None,
+                cspec=None):
     """Pre-norm residual block. Returns (x, cache', aux): aux holds the
     MoE layer's ``moe_aux_loss``, and is empty for other layers. A cross
     layer attends to ``enc_out`` (train, prefill) or to its cached
     ``cross_k``/``cross_v`` (decode); prefill replaces those cache entries
-    with the encoder's keys and values, at the encoder's own length."""
+    with the encoder's keys and values, at the encoder's own length. Under
+    a mesh (``ctx``) the layer runs on this rank's shards, ``cspec`` being
+    its cache's specs (None: the cache is held whole)."""
+    if ctx is not None and ctx.mesh is not None:
+        return _apply_layer_sharded(spec, p, x, cfg=cfg, mode=mode,
+                                    cache=cache, pos=pos,
+                                    positions=positions, enc_out=enc_out,
+                                    ctx=ctx, cspec=cspec)
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
     if spec.kind == "ssm":
         mix, new_cache = SSM.ssm_layer(p["mix"], h, cfg=cfg, mode=mode,
@@ -199,6 +207,61 @@ def apply_layer(spec: LayerSpec, p, x, *, cfg: ModelConfig, mode: str,
     return x + out, new_cache, aux
 
 
+def _apply_layer_sharded(spec: LayerSpec, p, x, *, cfg: ModelConfig,
+                         mode: str, cache, pos, positions, enc_out, ctx,
+                         cspec):
+    """`apply_layer` on local shards (`models/tp.py`). Mamba-2, RG-LRU and
+    MLA layers have no sharded form here: they run on their parameters and
+    cache gathered over the model axis."""
+    from repro_torch.models import tp as TP
+    if spec.kind in ("ssm", "rec", "mla"):
+        def mix_fn(pw, h, cw):
+            if spec.kind == "ssm":
+                return SSM.ssm_layer(pw, h, cfg=cfg, mode=mode, cache=cw)
+            if spec.kind == "rec":
+                return RG.rglru_layer(pw, h, cfg=cfg, mode=mode, cache=cw)
+            return L.mla_layer(pw, h, cfg=cfg, mode=mode, cache=cw, pos=pos,
+                               positions=positions)
+        pspecs = TP.layer_param_specs(cfg, spec, ctx)["mix"]
+        h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
+        mix, new_cache = TP.replicated_layer(mix_fn, p["mix"], h, cache,
+                                             cspec, pspecs, ctx)
+        if spec.kind == "ssm":
+            return x + mix, new_cache, {}
+    else:
+        h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
+        kv_spec = cspec["k"] if cspec is not None else None
+        mix, new_cache = L.attention_layer(
+            p["mix"], h, cfg=cfg, mode=mode, cache=cache, pos=pos,
+            window=spec.window, positions=positions, ctx=ctx, cspec=kv_spec)
+    x = x + mix
+    use_cross = spec.cross and (
+        enc_out is not None
+        or (mode == "decode" and cache is not None and "cross_k" in cache))
+    if use_cross:
+        h = L.rmsnorm(p["norm_cross"], x, cfg.norm_eps)
+        cross_spec = cspec["cross_k"] if cspec is not None else None
+        enc_cache = None
+        if cache is not None and mode == "decode":
+            enc_cache = {"k": cache["cross_k"], "v": cache["cross_v"]}
+        mix, cross_kv = L.attention_layer(
+            p["cross"], h, cfg=cfg, mode=mode, enc_out=enc_out,
+            enc_cache=enc_cache, causal=False, ctx=ctx, cspec=cross_spec)
+        x = x + mix
+        if new_cache is not None and mode != "decode":
+            for key in ("k", "v"):
+                new_cache["cross_" + key] = TP.cache_view(
+                    cross_kv[key], cache["cross_" + key], cross_spec, ctx)
+    h = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
+    aux = {}
+    if spec.moe:
+        out, aux = MOE.moe_fn(ctx.moe_dispatch, ctx)(p["moe"], h, cfg=cfg,
+                                                     ctx=ctx)
+    else:
+        out = L.mlp(p["mlp"], h, cfg.activation, ctx, cfg.d_ff)
+    return x + out, new_cache, aux
+
+
 # ---------------------------------------------------------------------------
 # Whole stack
 # ---------------------------------------------------------------------------
@@ -218,20 +281,26 @@ def init_stack_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
 
 def run_stack(layers, x, *, cfg: ModelConfig, mode: str, cache=None,
               pos=None, positions=None, moe_dispatch: str = "dense",
-              enc_out=None, remat: bool = False):
+              enc_out=None, remat: bool = False, ctx=None):
     """Apply every layer in order. Returns (x, cache', aux): the cache is
     updated in place and returned for prefill and decode; aux holds
     ``moe_aux_loss``, summed over the layers as the JAX package sums it
     (float32 zero for a model without MoE layers). With ``remat`` in train
     mode each layer runs under `torch.utils.checkpoint`, so the backward
-    recomputes one layer at a time (the JAX package's nested remat)."""
+    recomputes one layer at a time (the JAX package's nested remat). Under
+    a mesh (``ctx``) the layers run on this rank's shards; a cache with
+    ``specs`` (`model.init_cache` under a mesh) says how each layer's cache
+    is split."""
     specs = block_program(cfg).layers()
     aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     layer_remat = remat and mode == "train"
+    cspecs = getattr(cache, "specs", None)
     for i, (spec, p) in enumerate(zip(specs, layers, strict=True)):
         c = cache[i] if cache is not None else None
         kw = dict(cfg=cfg, mode=mode, cache=c, pos=pos, positions=positions,
                   moe_dispatch=moe_dispatch, enc_out=enc_out)
+        if ctx is not None and ctx.mesh is not None:
+            kw.update(ctx=ctx, cspec=cspecs[i] if cspecs else None)
         if layer_remat:
             x, _, aux = torch.utils.checkpoint.checkpoint(
                 apply_layer, spec, p, x, use_reentrant=False, **kw)
@@ -266,7 +335,7 @@ def sinusoidal_positions(seq: int, d: int, device=None):
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)[None]
 
 
-def run_encoder(params, frames, *, cfg: ModelConfig):
+def run_encoder(params, frames, *, cfg: ModelConfig, ctx=None):
     """frames: (B, S_enc, D) stub conv-frontend embeddings -> (B, S_enc, D).
     Each layer's attention is bidirectional (the flash kernel with
     ``causal=False`` on the card) and unrotated."""
@@ -276,8 +345,8 @@ def run_encoder(params, frames, *, cfg: ModelConfig):
     for p in params["layers"]:
         h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
         mix, _ = L.attention_layer(p["mix"], h, cfg=cfg, mode="encode",
-                                   causal=False)
+                                   causal=False, ctx=ctx)
         x = x + mix
         h = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
-        x = x + L.mlp(p["mlp"], h, cfg.activation)
+        x = x + L.mlp(p["mlp"], h, cfg.activation, ctx, cfg.d_ff)
     return L.rmsnorm(params["norm"], x, cfg.norm_eps)

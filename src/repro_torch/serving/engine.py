@@ -25,6 +25,15 @@ an RG-LRU layer's recurrence is plain PyTorch. An M-RoPE model (qwen2-vl)
 prefills with three equal (3, 1, S) position streams, as the JAX engine
 does; recurrent states (Mamba-2, RG-LRU) absorb the bucket padding, as in
 the JAX engine.
+
+With ``ctx`` (a `ParallelContext` with a mesh) every rank runs the same
+engine over its shards: the weights (`init_params(..., ctx=)`), the slot
+cache (cut by `launch.shardings.cache_specs_tree`: its slots over the data
+axes, its heads, or its sequence for the context-parallel decode, over the
+model axis), the slot rows of each decode step; a prompt prefills on every
+rank into a cache held whole, whose shards go into the slot's owners. The
+logits of every slot are gathered, so every rank samples the same tokens.
+The paged pool has no sharded form.
 """
 from __future__ import annotations
 
@@ -77,7 +86,8 @@ class ServingEngine:
                  max_seq: int = 1024, device=None, temperature: float = 0.0,
                  seed: int = 0, paged: bool = False,
                  kv_blocks: Optional[int] = None, kv_block_tokens: int = 16,
-                 prefix_sharing: bool = True, moe_dispatch: str = "dense"):
+                 prefix_sharing: bool = True, moe_dispatch: str = "dense",
+                 ctx=None):
         if cfg.enc_dec:
             raise ValueError(
                 f"{cfg.arch_id} is an encoder-decoder model: the engine's "
@@ -91,6 +101,14 @@ class ServingEngine:
                              f"engine runs on {self.device}")
         self.cfg = cfg
         self.params = params
+        self.ctx = ctx if ctx is not None and ctx.mesh is not None else None
+        if self.ctx is not None:
+            if paged:
+                raise ValueError("the paged KV pool has no sharded form")
+            if cfg.family != "ssm" and cfg.mla is None:
+                from repro_torch.models.tp import check_kernel_shapes
+                check_kernel_shapes(cfg, self.ctx)
+            moe_dispatch = ctx.moe_dispatch
         self.max_batch = max_batch
         self.max_seq = max_seq
         self.temperature = temperature
@@ -98,7 +116,8 @@ class ServingEngine:
         # engine takes from its ParallelContext
         MOE.moe_fn(moe_dispatch)        # raises on an unknown name
         self.moe_dispatch = moe_dispatch
-        self.cache = M.init_cache(cfg, max_batch, max_seq, device=self.device)
+        self.cache = M.init_cache(cfg, max_batch, max_seq, device=self.device,
+                                  ctx=self.ctx)
         self.positions = [0] * max_batch
         self.cur_tokens = [0] * max_batch
         self.slot_req: List[Optional[Request]] = [None] * max_batch
@@ -201,9 +220,30 @@ class ServingEngine:
     def _insert_slot(self, slot: int, single_cache) -> None:
         # in place: every leaf of the batch cache takes row `slot` of the
         # single-slot cache (the JAX engine builds a new cache tree)
+        if self.ctx is not None:
+            self._insert_slot_sharded(slot, single_cache)
+            return
         for layer, one in zip(self.cache, single_cache, strict=True):
             for key, leaf in layer.items():
                 leaf[slot] = one[key][0]
+
+    def _insert_slot_sharded(self, slot: int, single_cache) -> None:
+        """Row `slot` of this rank's cache shards from a batch-1 cache held
+        whole: the shard its specs give, where this rank holds the row."""
+        from repro_torch.models.parallel import local_view
+        ctx = self.ctx
+        for layer, one, specs in zip(self.cache, single_cache,
+                                     self.cache.specs, strict=True):
+            for key, leaf in layer.items():
+                spec = specs[key]
+                row = slot
+                if spec[0] is not None:      # slots split over data axes
+                    n = leaf.shape[0]
+                    if slot // n != ctx.axis_index(spec[0]):
+                        continue
+                    row = slot % n
+                leaf[row] = local_view(one[key][:1], (None,) + tuple(spec[1:]),
+                                       ctx)[0]
 
     def _extract_slot(self, slot: int):
         """Row `slot` of every cache leaf, as a batch-1 cache of copies."""
@@ -286,7 +326,8 @@ class ServingEngine:
                 self._note_compile("prefill", prompt.shape)
                 logits, one_cache = M.forward(
                     self.params, batch, cfg=self.cfg, mode="prefill",
-                    cache=one_cache, moe_dispatch=self.moe_dispatch)
+                    cache=one_cache, moe_dispatch=self.moe_dispatch,
+                    ctx=self.ctx)
                 last_logits = logits[:, plen - 1]
             self.n_prefills += 1
             if self._sharing:
@@ -375,7 +416,8 @@ class ServingEngine:
         self._note_compile("decode", tokens.shape)
         logits, self.cache = M.decode_step(self.params, tokens, self.cache,
                                            pos, cfg=self.cfg,
-                                           moe_dispatch=self.moe_dispatch)
+                                           moe_dispatch=self.moe_dispatch,
+                                           ctx=self.ctx)
         self.n_decode_steps += 1
         next_tokens = sample_tokens(logits, self.temperature,
                                     generator=self._gen).tolist()

@@ -3,10 +3,12 @@ from repro_torch.training.data import DataConfig, SyntheticLM
 from repro_torch.training.optimizer import (
     AdamWConfig, OptState, adamw_update, init_opt_state,
 )
-from repro_torch.training.train_loop import make_train_step, train
+from repro_torch.training.train_loop import (
+    init_opt_state_sharded, make_train_step, train,
+)
 
 __all__ = [
     "AdamWConfig", "DataConfig", "OptState", "SyntheticLM", "adamw_update",
-    "init_opt_state", "load_checkpoint", "make_train_step", "save_checkpoint",
+    "init_opt_state", "init_opt_state_sharded", "load_checkpoint", "make_train_step", "save_checkpoint",
     "train",
 ]

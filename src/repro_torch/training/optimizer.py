@@ -74,6 +74,47 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(x.float().square().sum() for x in leaves(tree)))
 
 
+def _adamw_leaf(cfg: AdamWConfig, p, g, m, v, clip, lr, b1c, b2c, ndim):
+    """AdamW on one leaf (or its ZeRO chunk), in float32: updates the
+    moments in place and returns the new values in float32."""
+    g = g.float() * clip
+    m.mul_(cfg.b1).add_((1.0 - cfg.b1) * g)
+    v.mul_(cfg.b2).add_((1.0 - cfg.b2) * g.square())
+    delta = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
+    if ndim >= 2:       # decoupled weight decay on matrices only
+        delta = delta + cfg.weight_decay * p.float()
+    return p.float() - lr * delta
+
+
+@torch.no_grad()
+def adamw_update_sharded(cfg: AdamWConfig, params, grads, state: OptState,
+                         layout):
+    """`adamw_update` on this rank's shards with ZeRO-1 moments: ``grads``
+    and ``state``'s moments are each leaf's chunk along its data-axis dim
+    (`ZeroLayout`); the global norm sums every rank's chunks once; each
+    updated chunk is gathered back into the rank's parameter shard."""
+    from repro_torch.models import parallel as PAR
+    ctx = layout.ctx
+    sq = sum(g.float().square().sum() / r for g, r in zip(
+        leaves(grads), layout.replicas, strict=True))
+    gnorm = torch.sqrt(PAR.all_reduce(sq, ctx, ctx.mesh.axis_names))
+    clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
+    step = state.step + 1
+    lr = cosine_lr(cfg, step)
+    b1c = 1.0 - cfg.b1 ** step
+    b2c = 1.0 - cfg.b2 ** step
+    for p, g, m, v, dim in zip(leaves(params), leaves(grads),
+                               leaves(state.m), leaves(state.v),
+                               layout.dims, strict=True):
+        chunk = layout.chunk(p, dim)
+        new = _adamw_leaf(cfg, chunk, g, m, v, clip, lr, b1c, b2c, p.ndim)
+        if dim is not None:
+            new = PAR.all_gather(new.to(p.dtype), ctx, ctx.batch_spec, dim)
+        p.copy_(new)
+    return params, OptState(step, state.m, state.v), {
+        "grad_norm": gnorm, "lr": lr}
+
+
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, params, grads, state: OptState):
     """One AdamW step on `params` in place. The steps count from 1; the
@@ -88,12 +129,6 @@ def adamw_update(cfg: AdamWConfig, params, grads, state: OptState):
     b2c = 1.0 - cfg.b2 ** step
     for p, g, m, v in zip(leaves(params), leaves(grads), leaves(state.m),
                           leaves(state.v), strict=True):
-        g = g.float() * clip
-        m.mul_(cfg.b1).add_((1.0 - cfg.b1) * g)
-        v.mul_(cfg.b2).add_((1.0 - cfg.b2) * g.square())
-        delta = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
-        if p.ndim >= 2:     # decoupled weight decay on matrices only
-            delta = delta + cfg.weight_decay * p.float()
-        p.copy_(p.float() - lr * delta)
+        p.copy_(_adamw_leaf(cfg, p, g, m, v, clip, lr, b1c, b2c, p.ndim))
     return params, OptState(step, state.m, state.v), {
         "grad_norm": gnorm, "lr": lr}

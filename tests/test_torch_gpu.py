@@ -966,3 +966,74 @@ def test_train_steps_card_vs_cpu(cuda, arch, microbatches):
     assert all(np.isfinite(card_loss))
     for a, b in zip(card_p, cpu_p, strict=True):
         torch.testing.assert_close(a, b, rtol=5e-3, atol=5e-3)
+
+
+# the decode kernel's logsumexp (the context-parallel decode's shard
+# partial): float32 to 2e-5; bf16 scores come from the tensor cores, to
+# about 1e-5 of their size (the flash kernel's gate)
+DECODE_LSE_TOL = {"float32": 2e-5, "bfloat16": 1e-3}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("g", [1, 4, 10, 16])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("s", [256, 1024, 4096])
+def test_decode_lse_matches_plain_logsumexp(cuda, dtype, tol, g, d, s):
+    """Rows of 0, 1, about half of S and S valid slots, in one split (S =
+    256) or across split boundaries (1024 and 4096 split the cache at
+    these 4 rows), against the plain logsumexp; a row with no valid slot
+    gets -1e30 + log(S), which weighs zero."""
+    hkv = 2
+    valid = [0, 1, min(300, s // 2 + 3), s]
+    b = len(valid)
+    dt = TORCH_DT[dtype]
+    q = torch.tensor(_normal(31, b, g * hkv, d), device=cuda).to(dt)
+    k = torch.tensor(_normal(32, b, hkv, s, d), device=cuda).to(dt)
+    v = torch.tensor(_normal(33, b, hkv, s, d), device=cuda).to(dt)
+    vl = torch.tensor(valid, dtype=torch.int32, device=cuda)
+    scale = d ** -0.5
+    out, lse = decode_attention(q, k, v, vl, scale=scale, return_lse=True)
+    plain, plain_lse = tref.decode_attention_lse_ref(q, k, v, vl, scale=scale)
+    torch.testing.assert_close(out.float(), plain.float(), rtol=tol,
+                               atol=tol)
+    live = vl > 0
+    err = (lse - plain_lse)[live].abs().max().item()
+    assert err <= DECODE_LSE_TOL[dtype] * max(
+        1.0, plain_lse[live].abs().max().item())
+    assert bool((lse[~live] <= -1e29).all())
+    # serving launches without lse: the same rows
+    torch.testing.assert_close(decode_attention(q, k, v, vl, scale=scale),
+                               out, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("shards", [2, 4])
+@pytest.mark.parametrize("hq,hkv,d", [(8, 1, 256), (16, 4, 128)])
+def test_cp_combine_matches_whole_cache_decode(cuda, dtype, tol, shards, hq,
+                                               hkv, d):
+    """The context-parallel decode on the card: the decode kernel with its
+    logsumexp over each slice of the cache, combined, against the plain
+    decode of the whole cache (a shard past a row's length weighs zero)."""
+    s = 512
+    valid = [1, 129, 300, 512]
+    b = len(valid)
+    dt = TORCH_DT[dtype]
+    q = torch.tensor(_normal(41, b, hq, d), device=cuda).to(dt)
+    k = torch.tensor(_normal(42, b, hkv, s, d), device=cuda).to(dt)
+    v = torch.tensor(_normal(43, b, hkv, s, d), device=cuda).to(dt)
+    vl = torch.tensor(valid, dtype=torch.int32, device=cuda)
+    scale = d ** -0.5
+    sl = s // shards
+    outs, lses = [], []
+    for i in range(shards):
+        o, lse = decode_attention(
+            q, k[:, :, i * sl:(i + 1) * sl], v[:, :, i * sl:(i + 1) * sl],
+            torch.clamp(vl - i * sl, 0, sl).to(torch.int32), scale=scale,
+            return_lse=True)
+        outs.append(o)
+        lses.append(lse)
+    got = tref.cp_combine_ref(outs, lses)
+    want = tref.decode_attention_ref(q, k, v, vl, scale=scale)
+    torch.testing.assert_close(got, want.float(), rtol=tol, atol=tol)

@@ -158,13 +158,16 @@ def test_cpu_path_counts_no_launch():
     q = torch.zeros(1, 8, 2, 64)
     ops.flash_attention(q, q[:, :, :1], q[:, :, :1])
     ops.decode_attention(q[:, :1], q[:, :, :1], q[:, :, :1], 3)
+    ops.decode_attention(q[:, :1], q[:, :, :1], q[:, :, :1], 3,
+                         return_lse=True)
     ops.paged_attention(q[:, :1], q[:, :, :1], q[:, :, :1],
                         torch.zeros(1, 2, dtype=torch.int32), 3)
     x = torch.zeros(1, 8, 2, 4)
     ops.ssd_diag(x, x[..., 0], x[0, 0, :, 0], x[..., 0], x[..., 0])
     assert ops.kernel_launches() == {"flash_attention": 0,
                                      "decode_attention": 0,
-                                     "paged_attention": 0, "ssd_diag": 0}
+                                     "paged_attention": 0, "ssd_diag": 0,
+                                     "decode_attention_lse": 0}
 
 
 # ---------------------------------------------------------------------------

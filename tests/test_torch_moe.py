@@ -121,7 +121,10 @@ def test_moe_capacity_drops_by_stable_order():
 
 def test_moe_dispatch_rejects_unknown_names():
     with pytest.raises(ValueError, match="moe_dispatch"):
-        MOE.moe_fn("ep_a2a")
+        MOE.moe_fn("all_to_all")
+    # the expert-parallel all-to-all is a dispatch of its own (without a
+    # mesh it is capacity dispatch, as in the JAX package)
+    assert MOE.moe_fn("ep_a2a") is MOE.moe_layer_ep_a2a
 
 
 @pytest.mark.parametrize("reduced", [False, True])
@@ -330,4 +333,4 @@ def test_engine_rejects_an_unknown_dispatch():
     _, tcfg = config_pair("deepseek-moe-16b", **ENGINE_REDUCED)
     tp = init_params(tcfg, device="cpu")
     with pytest.raises(ValueError, match="moe_dispatch"):
-        ServingEngine(tcfg, tp, device="cpu", moe_dispatch="ep_a2a")
+        ServingEngine(tcfg, tp, device="cpu", moe_dispatch="all_to_all")
