@@ -41,7 +41,10 @@ fails:
    float32 paged engine with a prefix hit and an eviction, card against
    CPU;
 7. fleet: the `--policy perllm` edge-cloud fleet on the card, dense and
-   `--paged` (the paged one against the same fleet on the CPU);
+   `--paged` (the paged one against the same fleet on the CPU), and the
+   serving example (`repro_torch.examples.perllm_serving`, the JAX
+   package's `examples/perllm_serving.py`) with its 24 requests on the
+   card's engines;
 8. moe / mla: full-width deepseek-moe-16b (dense dispatch), minicpm3-4b
    (MLA: prefill through the flash kernel at head_dim 96, decode through
    latent matrix products) dense and `--paged` with a prefix hit on the
@@ -88,12 +91,21 @@ fails:
    dispatch; a sharded train step of full-width gemma-2b, its loss,
    gradient norm, update norm and last layer's weights and moments held
    to one rank's step by gates that a step on half the batch fails;
-   reduced float32 gemma-2b and deepseek (constraint form) engines against
-   one CPU process. gemma-2b's bf16 logits are held to the float32 model
-   (no further than 1.25x one rank's bf16 run); it prints the collectives
-   by kind and bytes. Phase 3 also holds the decode kernel's logsumexp and
-   the CP decode body (each shard's decode, then the combine) against
-   their plain versions.
+   gemma-2b's sharded paged engine (an eviction, a resume in the other
+   data rank's slot, a prefix hit) against its dense sharded engine; the
+   sharded engines of full-width mamba2-2.7b, recurrentgemma-2b,
+   minicpm3-4b and qwen2-vl-2b (the Mamba-2, RG-LRU and MLA mixers on the
+   rank's heads or channels), each with its logits against one rank's,
+   tok/s, host launches and collectives a decode step (no all-gather as
+   large as a mixer weight), per-rank peak memory, and the paged kernel on
+   a rank's qwen2-vl pools against its plain version; whisper-base at the
+   model level; reduced float32 engines of gemma-2b, deepseek (constraint
+   form) and the four families against one CPU process. bf16 logits are
+   held to the float32 model (no further than 1.25x one rank's bf16 run);
+   it prints the collectives by kind and bytes. Phase 3 also holds the
+   decode kernel's logsumexp, the CP decode body (each shard's decode,
+   then the combine) and every kernel at the ranks' shapes against their
+   plain versions.
 
 `python3 chip_smoke.py --step-launches SRC ARCH...` is a measurement, not
 the smoke: with `repro_torch` imported from SRC (a tree's `src`, so that two
@@ -735,6 +747,14 @@ FLASH_CASES = [
      "path: qwen2-vl-2b prefill, bucket 32"),
     (1, 12, 2, 32, 32, 128, 0, 0, "float32", "qwen2-vl-2b heads, f32"),
     (1, 12, 2, 2048, 2048, 128, 0, 0, "bfloat16", "long: qwen2-vl-2b heads"),
+    # phase 11's ranks at model 2: minicpm3's 20 MLA heads, recurrentgemma's
+    # 5 q-heads on its gathered kv-head, qwen2-vl's 6 on 1
+    (1, 20, 20, 32, 32, 96, 0, 0, "bfloat16",
+     "path: sharded minicpm3-4b, 20 heads, bucket 32"),
+    (1, 5, 1, 32, 32, 256, 2048, 0, "bfloat16",
+     "path: sharded recurrentgemma-2b, 5 on 1"),
+    (1, 6, 1, 32, 32, 128, 0, 0, "bfloat16",
+     "path: sharded qwen2-vl-2b, 6 on 1, bucket 32"),
 ]
 # whisper-base (8 q-heads on 8 kv-heads, D 64, 1500 frames): the encoder
 # and cross attention, bidirectional
@@ -746,6 +766,9 @@ NONCAUSAL_FLASH_CASES = [
     (4, 8, 8, 1, 1500, 64, 0, 0, "float32", "whisper-base cross decode, f32"),
     (4, 8, 8, 32, 1500, 64, 0, 0, "bfloat16", "whisper-base cross, Sq 32"),
     (4, 8, 8, 32, 1500, 64, 0, 0, "float32", "whisper-base cross Sq 32, f32"),
+    # phase 11's sharded whisper: 2 rows and 4 heads a rank
+    (2, 4, 4, 1500, 1500, 64, 0, 0, "bfloat16",
+     "path: sharded whisper-base encoder, 4 heads"),
 ]
 # the kernel writing its logsumexp (for the backward), causal and not
 LSE_CASES = [
@@ -794,6 +817,13 @@ DECODE_CASES = [
     (16, 1, 1024, 128, [0, 1, 300, 1024], "bfloat16", "G 16, valid 0"),
     (16, 1, 1024, 128, [0, 1, 300, 1024], "float32", "G 16, valid 0, f32"),
     (12, 2, 256, 128, [20, 27, 33, 41], "bfloat16", "path: qwen2-vl-2b decode"),
+    # phase 11's ranks at model 2: recurrentgemma's 5 q-heads a rank on its
+    # one kv-head (a cache whose batch is whole: the prefix-hit and batch-1
+    # shapes), qwen2-vl's 6 on 1
+    (5, 1, 256, 256, [20, 27, 33, 41], "bfloat16",
+     "sharded recurrentgemma-2b, 5 on 1"),
+    (6, 1, 256, 128, [20, 27, 33, 41], "bfloat16",
+     "path: sharded qwen2-vl-2b decode, 6 on 1"),
 ]
 # the decode kernel writing each row's logsumexp (the context-parallel
 # decode's shard partial): phase 11's shard of gemma-2b's CP decode (2 rows,
@@ -802,6 +832,8 @@ DECODE_CASES = [
 DECODE_LSE_CASES = [
     (8, 1, 128, 256, [65, 0], "bfloat16", "path: gemma-2b CP shard"),
     (8, 1, 128, 256, [65, 0], "float32", "gemma-2b CP shard, f32"),
+    (10, 1, 128, 256, [20, 0], "bfloat16",
+     "path: sharded recurrentgemma-2b CP shard"),
     (8, 1, 4096, 256, [4096] * 32, "bfloat16", "long: gemma-2b B=32 S=4096"),
     (16, 16, 4096, 128, [4096] * 32, "bfloat16",
      "long: deepseek-moe-16b B=32 S=4096"),
@@ -842,6 +874,8 @@ PAGED_CASES = [
      "long: recurrentgemma-2b B=32 4096 tokens"),
     (10, 1, 256, 16, 256, [4096] * 32, "float32",
      "long: recurrentgemma-2b B=32 4096 tokens, f32"),
+    (6, 1, 128, 16, 16, [40, 27, 0, 41], "bfloat16",
+     "path: sharded qwen2-vl-2b pool, 6 on 1"),
 ]
 # (b, s, h, p, n, chunk, label): mamba2-2.7b's 80 heads of 64, state 128;
 # the engine's prompt buckets give chunk = min(256, bucket)
@@ -852,6 +886,10 @@ SSD_CASES = [
     (1, 32, 80, 64, 128, 32, "mamba2-2.7b, bucket 32"),
     (1, 128, 80, 64, 128, 128, "path: mamba2-2.7b prefill, bucket 128"),
     (1, 2048, 80, 64, 128, 256, "long: mamba2-2.7b S=2048 chunk 256"),
+    # phase 11's ranks at model 2: 40 heads a rank
+    (1, 256, 40, 64, 128, 256, "sharded mamba2-2.7b, 40 heads, S=256"),
+    (1, 32, 40, 64, 128, 32, "path: sharded mamba2-2.7b, 40 heads, "
+                             "bucket 32"),
 ]
 
 
@@ -959,8 +997,28 @@ SHARD_TRAIN_LAYERS = 18
 SHARD_ADAMW = dict(warmup_steps=1)
 SHARD_TRAIN_GATES = dict(loss=1e-3, grad_norm=1e-2, update_norm=1e-3,
                          last_params=0.5, last_moments=0.1)
+# the Mamba-2, RG-LRU hybrid, MLA and M-RoPE families' sharded engines at
+# full width and depth (no depth is cut: the whole script stays near 420 s
+# on the H100, within half its limit), bf16, each serving phase 4's 8
+# requests (SHARD_SERVE) and freed before the next: mamba2-2.7b (40 SSD
+# heads a rank), recurrentgemma (1280 RG-LRU channels a rank; its one
+# kv-head on a batch-split cache takes the context-parallel decode, 10
+# q-heads on 128 slots a shard), minicpm3 (20 MLA heads a rank, flash at D
+# 96) and qwen2-vl (text only; 6 q-heads on its 1 kv-head a rank); then
+# whisper-base at the model level, SHARD_WHISPER rows with 1500 frames each
+# (4 heads a rank). Each is held by its logits on CP_ROWS rows of a
+# CP_PROMPT-token prompt and one decode step (whisper: its own rows): bf16
+# to the float32 model as gemma-2b is (SHARD_VS_F32: no routing, so no near
+# tie flips a branch). gemma-2b's sharded paged engine (an eviction, a
+# resume in the other data rank's slot, a prefix hit) and the paged kernel
+# on a rank's pool of qwen2-vl (1 of its 2 kv-heads a rank) run beside
+# them.
+SHARD_ENGINES = ("mamba2-2.7b", "recurrentgemma-2b", "minicpm3-4b",
+                 "qwen2-vl-2b")
+SHARD_WHISPER = dict(rows=4, prompt=16, slots=64)
+SHARD_PAGED_NEW = 16
 # reduced float32 engines sharded on the card against one CPU process
-SHARD_SMALL = ("gemma-2b", "deepseek-moe-16b")
+SHARD_SMALL = ("gemma-2b", "deepseek-moe-16b") + SHARD_ENGINES
 SHARD_SMALL_PROMPTS = [[5, 9, 23, 7], [100, 3, 44, 12, 77, 8, 2], [31, 32, 33]]
 
 
@@ -1028,14 +1086,16 @@ def small_paged_run(arch: str, device: str):
             eng.n_prefills)
 
 
-def paged_pool_check(params, cfg):
+def paged_pool_check(params, cfg, ctx=None):
     """Full-width paged engine (bf16): a request evicted mid-decode. Right
     after the eviction the paged kernel reads every attention layer's pool
     through the request's page table; it is held against the plain version.
     The resumed request must end with the uninterrupted dense engine's
     tokens. Returns the worst errors and, per attention layer, the query,
     the paged output and the slot's dense cache taken just before the
-    eviction, for `decode_yardstick`."""
+    eviction, for `decode_yardstick`. Under a mesh (``ctx``) the engines
+    are sharded and the kernel reads this rank's pool: its kv-heads, with
+    the q-heads that read them."""
     import torch
     from repro_torch.kernels import ops, ref
     from repro_torch.models.transformer import block_program
@@ -1044,11 +1104,12 @@ def paged_pool_check(params, cfg):
     attn = [i for i, spec in enumerate(block_program(cfg).layers())
             if spec.kind == "attn"]
     prompt = [(13 * j + 5) % cfg.vocab_size for j in range(40)]
-    dense = ServingEngine(cfg, params, max_batch=1, max_seq=256, device=dev)
+    dense = ServingEngine(cfg, params, max_batch=1, max_seq=256, device=dev,
+                          ctx=ctx)
     want = dense.submit(prompt, max_new_tokens=24)
     dense.run_until_idle()
     eng = ServingEngine(cfg, params, max_batch=1, max_seq=256, device=dev,
-                        paged=True, kv_block_tokens=16)
+                        paged=True, kv_block_tokens=16, ctx=ctx)
     req = eng.submit(prompt, max_new_tokens=24)
     for _ in range(8):
         eng.step()
@@ -1057,13 +1118,18 @@ def paged_pool_check(params, cfg):
     pos = req.kv.position
     table = torch.tensor([req.pages.blocks], dtype=torch.int32, device=dev)
     gen = torch.Generator(device=dev).manual_seed(4)
-    hq, d = cfg.n_heads, cfg.resolved_head_dim
+    group, d = cfg.n_heads // cfg.n_kv_heads, cfg.resolved_head_dim
     worst = {"vs_plain": 0.0, "valid_len": pos,
              "pages": len(req.pages.blocks), "layers": len(attn),
-             "group": hq // cfg.n_kv_heads}
+             "group": group}
     outs = []
     for layer in attn:
         kp, vp = eng.kv.pool_views(layer)
+        if kp.shape[-1] != d:
+            fail(f"the pool splits head_dim ({kp.shape[-1]} of {d}): the "
+                 f"paged kernel takes whole kv-heads")
+        hq = kp.shape[2] * group
+        worst["heads"] = (hq, kp.shape[2])
         q = torch.randn(1, hq, d, generator=gen, device=dev).to(kp.dtype)
         got = ops.paged_attention(q, kp, vp, table, pos, scale=d ** -0.5,
                                   force_kernel=True)
@@ -1504,16 +1570,19 @@ def _train_batch(vocab):
             for k in ("tokens", "labels")}
 
 
-def _prefill_decode(params, cfg, toks, slots, ctx=None):
-    """Prefill all but the last token, then one scalar-`pos` decode step:
-    (last prefill logits, decode logits) on the CPU, float32."""
+def _prefill_decode(params, cfg, toks, slots, ctx=None, extras=None):
+    """Prefill all but the last token (with the batch's `extras`, such as
+    whisper's frames, in the model's dtype), then one scalar-`pos` decode
+    step: (last prefill logits, decode logits) on the CPU, float32."""
     import torch
     from repro_torch.models import decode_step, init_cache, prefill
     dev = params["embed"].device
     s = toks.shape[1] - 1
     cache = init_cache(cfg, toks.shape[0], slots, device=dev, ctx=ctx)
-    last, cache = prefill(params, {"tokens": toks[:, :s].to(dev)}, cache,
-                          cfg=cfg, ctx=ctx)
+    batch = {"tokens": toks[:, :s].to(dev)}
+    batch.update({k: v.to(dev, params["embed"].dtype)
+                  for k, v in (extras or {}).items()})
+    last, cache = prefill(params, batch, cache, cfg=cfg, ctx=ctx)
     dec, _ = decode_step(params, toks[:, s:].to(dev), cache, s, cfg=cfg,
                          ctx=ctx)
     return last.float().cpu(), dec.float().cpu()
@@ -1541,20 +1610,49 @@ def _small_sharded_tokens(arch, device, ctx=None):
     return out
 
 
-def _single_and_f32(cfg, dev, toks, slots):
+def _single_and_f32(cfg, dev, toks, slots, extras=None):
     """One rank's bf16 run and the same weights' float32 run."""
     import dataclasses
     import torch
     from repro_torch.models import init_params
     from repro_torch.training.optimizer import tree_map
     params = init_params(cfg, seed=0, device=dev)
-    single = _prefill_decode(params, cfg, toks, slots)
+    single = _prefill_decode(params, cfg, toks, slots, extras=extras)
     params = tree_map(lambda t: t.float(), params)
     f32 = _prefill_decode(params, dataclasses.replace(cfg, dtype="float32"),
-                          toks, slots)
+                          toks, slots, extras=extras)
     del params
     torch.cuda.empty_cache()
     return single, f32
+
+
+def _whisper_inputs(cfg):
+    """SHARD_WHISPER's prompt rows (and the decode token) and their 1500
+    frames, float32 on the CPU."""
+    import torch
+    gen = torch.Generator().manual_seed(15)
+    w = SHARD_WHISPER
+    toks = torch.randint(0, cfg.vocab_size, (w["rows"], w["prompt"] + 1),
+                         generator=gen)
+    frames = torch.randn((w["rows"], cfg.encoder_seq_len, cfg.d_model),
+                         generator=gen)
+    return toks, {"audio_frames": frames}
+
+
+def _mixer_weight_bytes(cfg) -> int:
+    """Bytes of the smallest whole column- or row-parallel weight of a
+    Mamba-2, RG-LRU or MLA mixer in `cfg` (0 if it has none): a decode
+    step's all-gathers must stay below it."""
+    from repro_torch.models import params_shapes
+    from repro_torch.models.transformer import block_program
+    names = {"ssm": ("wz", "wx", "out_proj"),
+             "rec": ("w_gate_in", "w_rec_in", "out_proj"),
+             "mla": ("wq_b", "wkv_b", "wo")}
+    sizes = [p["mix"][n].numel() * p["mix"][n].element_size()
+             for spec, p in zip(block_program(cfg).layers(),
+                                params_shapes(cfg)["layers"], strict=True)
+             for n in names.get(spec.kind, ())]
+    return min(sizes, default=0)
 
 
 def _moe_layer_input(d_model):
@@ -1629,6 +1727,16 @@ def shard_references(dev):
     cfg = _cfg("gemma-2b")
     refs["cp"], refs["cp_f32"] = _single_and_f32(
         cfg, dev, _cp_inputs(cfg.vocab_size), CP_SLOTS)
+    # the families' logits on one rank, bf16 and float32
+    refs["logits"] = {}
+    for arch in SHARD_ENGINES:
+        cfg = _cfg(arch)
+        refs["logits"][arch] = _single_and_f32(
+            cfg, dev, _cp_inputs(cfg.vocab_size), CP_SLOTS)
+    cfg = _cfg("whisper-base")
+    toks, extras = _whisper_inputs(cfg)
+    refs["logits"]["whisper-base"] = _single_and_f32(
+        cfg, dev, toks, SHARD_WHISPER["slots"], extras)
     # deepseek: one rank's bf16 and float32 runs, dense dispatch, and the
     # float32 MoE layer alone; a second draw of the weights (seed 1) is
     # the witness of the bf16 run's distance from the float32 one
@@ -1720,84 +1828,153 @@ def _rank_main(rank, world, port, args_path, out_path):
                                   if on_card else 0.0)
         return out
 
-    # full-width gemma-2b: CP prefill + decode, then the sharded engine
+    def serve_engine(arch, cfg, params):
+        """Phase 4's requests on the sharded engine: cold (counted), warm
+        (timed), then once more for SHARD_TRACED_STEPS decode steps traced
+        on rank 0 (host launches a step, the device's busy share) and
+        counted (collectives a decode step, by kind); the engine is dropped
+        with that run unfinished."""
+        prompts = _shard_prompts(cfg.vocab_size)
+
+        def serve():
+            eng = ServingEngine(cfg, params,
+                                max_batch=SHARD_SERVE["max_batch"],
+                                max_seq=SHARD_SERVE["max_seq"], device=dev,
+                                ctx=ctx)
+            for p in prompts:
+                eng.submit(p, max_new_tokens=SHARD_SERVE["max_new"])
+            eng.run_until_idle()
+            return eng
+        eng = path(f"11 {arch} sharded engine", serve)
+        done = list(eng.completed)
+        out = dict(
+            requests=len(done), tokens=sum(len(r.generated) for r in done),
+            in_vocab=all(0 <= t < cfg.vocab_size for r in done
+                         for t in r.generated),
+            decode_steps=eng.n_decode_steps, prefills=eng.n_prefills)
+        stage(f"{arch} engine")
+        for p in prompts:
+            eng.submit(p, max_new_tokens=SHARD_SERVE["max_new"])
+        if on_card:
+            torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        steps = 0
+        while eng.queue or eng.active_slots:
+            eng.step()
+            steps += 1
+        if on_card:
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        toks = sum(len(r.generated) for r in eng.completed[len(done):])
+        out.update(warm_tokens=toks, warm_s=secs, warm_steps=steps,
+                   warm_tok_per_s=toks / secs)
+        stage(f"{arch} warm")
+        for p in prompts:
+            eng.submit(p, max_new_tokens=SHARD_SERVE["max_new"])
+        for _ in range(2):          # admit and prefill first
+            eng.step()
+        prof = None
+        if rank == 0 and on_card:
+            prof = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA])
+            prof.__enter__()
+            torch.cuda.synchronize()
+        PAR.reset_collectives()
+        t0 = time.perf_counter()
+        for _ in range(SHARD_TRACED_STEPS):
+            eng.step()
+        if on_card:
+            torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t0
+        out["step_collectives"] = {
+            k: {"calls": v["calls"] / SHARD_TRACED_STEPS,
+                "bytes": v["bytes"] / SHARD_TRACED_STEPS,
+                "largest": v["largest"]}
+            for k, v in PAR.collective_counts().items()}
+        out["step_s"] = traced_s / SHARD_TRACED_STEPS
+        if prof is not None:
+            prof.__exit__(None, None, None)
+            avg = prof.key_averages()
+            out["host_launches_per_step"] = sum(
+                e.count for e in avg if e.key in ("cudaLaunchKernel",
+                                                  "cuLaunchKernelEx")
+            ) / SHARD_TRACED_STEPS
+            cuda = torch.autograd.DeviceType.CUDA
+            out["busy_share"] = sum(
+                e.self_device_time_total for e in avg
+                if e.device_type == cuda) / 1e6 / traced_s
+        stage(f"{arch} traced")
+        return out
+
+    # full-width gemma-2b: CP prefill + decode, the sharded engine, then the
+    # sharded paged engine
     cfg = _cfg("gemma-2b")
     params = init_params(cfg, seed=0, device=dev, ctx=ctx)
     stage("gemma-2b init")
     res["cp"] = path("11 gemma-2b CP decode", lambda: _prefill_decode(
         params, cfg, _cp_inputs(cfg.vocab_size), CP_SLOTS, ctx))
-    prompts = _shard_prompts(cfg.vocab_size)
+    res["engines"] = {"gemma-2b": serve_engine("gemma-2b", cfg, params)}
 
-    def serve():
+    def paged():
+        head = [(11 * j + 3) % cfg.vocab_size for j in range(32)]
+        prompts = [head + [7, 8, 9, 10, 11], head + [20, 21, 22],
+                   [4, 5, 6, 7, 8, 9]]
         eng = ServingEngine(cfg, params, max_batch=SHARD_SERVE["max_batch"],
                             max_seq=SHARD_SERVE["max_seq"], device=dev,
-                            ctx=ctx)
-        for p in prompts:
-            eng.submit(p, max_new_tokens=SHARD_SERVE["max_new"])
-        eng.run_until_idle()
-        return eng
-    eng = path("11 gemma-2b sharded engine", serve)
-    done = list(eng.completed)
-    res["engine"] = dict(
-        requests=len(done), tokens=sum(len(r.generated) for r in done),
-        in_vocab=all(0 <= t < cfg.vocab_size for r in done
-                     for t in r.generated),
-        decode_steps=eng.n_decode_steps, prefills=eng.n_prefills)
-    stage("gemma-2b engine")
-    # warm: the same prompts again, timed; then once more with rank 0's
-    # first SHARD_TRACED_STEPS steps under torch.profiler (the host's
-    # kernel launches a step and the device's busy share)
-    for p in prompts:
-        eng.submit(p, max_new_tokens=SHARD_SERVE["max_new"])
-    if on_card:
-        torch.cuda.synchronize()
-    dist.barrier()
-    t0 = time.perf_counter()
-    steps = 0
-    while eng.queue or eng.active_slots:
-        eng.step()
-        steps += 1
-    if on_card:
-        torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    toks = sum(len(r.generated) for r in eng.completed[len(done):])
-    res["engine"].update(warm_tokens=toks, warm_s=secs, warm_steps=steps,
-                         warm_tok_per_s=toks / secs)
-    stage("gemma-2b warm")
-    for p in prompts:
-        eng.submit(p, max_new_tokens=SHARD_SERVE["max_new"])
-    for _ in range(2):          # admit and prefill first
-        eng.step()
-    prof = None
-    if rank == 0 and on_card:
-        prof = torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA])
-        prof.__enter__()
-        torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(SHARD_TRACED_STEPS):
-        eng.step()
-    if on_card:
-        torch.cuda.synchronize()
-    traced_s = time.perf_counter() - t0
-    if prof is not None:
-        prof.__exit__(None, None, None)
-        avg = prof.key_averages()
-        res["engine"]["host_launches_per_step"] = sum(
-            e.count for e in avg if e.key in ("cudaLaunchKernel",
-                                              "cuLaunchKernelEx")
-        ) / SHARD_TRACED_STEPS
-        cuda = torch.autograd.DeviceType.CUDA
-        res["engine"]["busy_share"] = sum(
-            e.self_device_time_total for e in avg
-            if e.device_type == cuda) / 1e6 / traced_s
-    while eng.queue or eng.active_slots:
-        eng.step()
-    stage("gemma-2b traced")
-    del eng, params
+                            ctx=ctx, paged=True, kv_block_tokens=16)
+        toks = evict_resume(eng, prompts, SHARD_PAGED_NEW)
+        dense = ServingEngine(cfg, params,
+                              max_batch=SHARD_SERVE["max_batch"],
+                              max_seq=SHARD_SERVE["max_seq"], device=dev,
+                              ctx=ctx)
+        want = [dense.submit(p, max_new_tokens=SHARD_PAGED_NEW)
+                for p in prompts]
+        dense.run_until_idle()
+        return dict(tokens=toks, dense=[r.generated for r in want],
+                    hits=eng.n_prefix_hits, prefills=eng.n_prefills,
+                    returned=eng.kv.free_blocks == eng.kv.n_blocks)
+    res["paged"] = path("11 gemma-2b sharded paged engine", paged)
+    stage("gemma-2b paged")
+    del params
     if on_card:
         torch.cuda.empty_cache()
+
+    # the Mamba-2, RG-LRU, MLA and M-RoPE families at full width: logits,
+    # then the engine; the paged kernel on a rank's qwen2-vl pool
+    res["logits"] = {}
+    for arch in SHARD_ENGINES:
+        cfg = _cfg(arch)
+        params = init_params(cfg, seed=0, device=dev, ctx=ctx)
+        stage(f"{arch} init")
+        res["logits"][arch] = path(
+            f"11 {arch} sharded logits", lambda: _prefill_decode(
+                params, cfg, _cp_inputs(cfg.vocab_size), CP_SLOTS, ctx))
+        res["engines"][arch] = serve_engine(arch, cfg, params)
+        res["engines"][arch]["mixer_weight_bytes"] = _mixer_weight_bytes(cfg)
+        if arch == "qwen2-vl-2b":
+            pool, outs = path(f"11 {arch} paged pool",
+                              lambda: paged_pool_check(params, cfg, ctx))
+            decode_yardstick(pool, outs)
+            res["pool"] = pool
+            del outs
+        del params
+        if on_card:
+            torch.cuda.empty_cache()
+        stage(f"{arch} done")
+
+    # whisper-base at the model level
+    cfg = _cfg("whisper-base")
+    params = init_params(cfg, seed=0, device=dev, ctx=ctx)
+    toks, extras = _whisper_inputs(cfg)
+    res["logits"]["whisper-base"] = path(
+        "11 whisper-base sharded", lambda: _prefill_decode(
+            params, cfg, toks, SHARD_WHISPER["slots"], ctx, extras))
+    del params
+    if on_card:
+        torch.cuda.empty_cache()
+    stage("whisper-base")
 
     # deepseek-moe-16b: ep_a2a and the constraint form through the model
     # in bf16; then, on the same weights in float32, the constraint form
@@ -1879,7 +2056,7 @@ def _rank_main(rank, world, port, args_path, out_path):
     # reduced float32 engines, sharded on the card
     res["small"] = {}
     for arch in SHARD_SMALL:
-        c = ctx if arch == "gemma-2b" else ep
+        c = ep if arch == "deepseek-moe-16b" else ctx
         res["small"][arch] = path(
             f"11 reduced {arch} engine",
             lambda arch=arch, c=c: _small_sharded_tokens(arch, dev, c))
@@ -1957,21 +2134,73 @@ def run_sharded(paths, card: str, dev) -> None:
     if cp["decode_attention_lse"] < 1 or cp["flash_attention"] < 1:
         fail("the CP decode did not run the decode kernel with lse and "
              "the flash kernel")
-    e = res["engine"]
+    # the sharded engines: every request finished, the kernels the family
+    # decodes with, no mixer weight gathered on a decode step
+    want_kernels = {
+        "gemma-2b": ("flash_attention", "decode_attention_lse"),
+        "mamba2-2.7b": ("ssd_diag",),
+        "recurrentgemma-2b": ("flash_attention", "decode_attention_lse"),
+        "minicpm3-4b": ("flash_attention",),
+        "qwen2-vl-2b": ("flash_attention", "decode_attention")}
     n = SHARD_SERVE["requests"]
-    print(f"sharded engine: {e['requests']} requests, {e['tokens']} tokens; "
-          f"warm {e['warm_tokens']} tokens in {e['warm_s']:.3f} s "
-          f"({e['warm_tok_per_s']:.1f} tok/s), {e['warm_steps']} steps, "
-          f"{e.get('host_launches_per_step', 0):.0f} host launches a step "
-          f"(rank 0), device busy {100 * e.get('busy_share', 0):.1f}% "
-          f"(rank 0) on {card}", flush=True)
-    if e["requests"] != n or e["tokens"] != n * SHARD_SERVE["max_new"] \
-            or not e["in_vocab"]:
-        fail("the sharded engine did not finish every request in the "
-             "vocabulary")
-    eng_l = res["paths"]["11 gemma-2b sharded engine"]["launches"]
-    if min(eng_l["flash_attention"], eng_l["decode_attention_lse"]) < 1:
-        fail("the sharded engine did not run the flash and CP decode kernels")
+    for arch, e in res["engines"].items():
+        label = f"11 {arch} sharded engine"
+        coll = {k: (round(v["calls"], 2), round(v["bytes"] / 2 ** 20, 3))
+                for k, v in e["step_collectives"].items() if v["calls"]}
+        gathered = e["step_collectives"]["all-gather"]["largest"]
+        peaks = [f"{r[label]:.2f}" for r in res["peak_gib_by_rank"]]
+        print(f"sharded {arch} engine: {e['requests']} requests, "
+              f"{e['tokens']} tokens; warm {e['warm_tokens']} tokens in "
+              f"{e['warm_s']:.3f} s ({e['warm_tok_per_s']:.1f} tok/s), "
+              f"{e['warm_steps']} steps, {1e3 * e['step_s']:.1f} ms a traced "
+              f"decode step, {e.get('host_launches_per_step', 0):.0f} host "
+              f"launches a step (rank 0), device busy "
+              f"{100 * e.get('busy_share', 0):.1f}% (rank 0); collectives a "
+              f"decode step (calls, MiB) {coll}, largest all-gather "
+              f"{gathered} bytes (smallest mixer weight "
+              f"{e.get('mixer_weight_bytes', 0)}); peak GiB by rank {peaks} "
+              f"on {card}", flush=True)
+        if e["requests"] != n or e["tokens"] != n * SHARD_SERVE["max_new"] \
+                or not e["in_vocab"]:
+            fail(f"the sharded {arch} engine did not finish every request in "
+                 f"the vocabulary")
+        launched = res["paths"][label]["launches"]
+        if min(launched[k] for k in want_kernels[arch]) < 1:
+            fail(f"the sharded {arch} engine did not run "
+                 f"{want_kernels[arch]}: {launched}")
+        if e.get("mixer_weight_bytes") and \
+                gathered >= e["mixer_weight_bytes"]:
+            fail(f"the sharded {arch} engine gathers a mixer weight on a "
+                 f"decode step")
+    for arch, got in res["logits"].items():
+        single, f32 = refs["logits"][arch]
+        for i, what in enumerate(("prefill", "decode")):
+            if got[i].shape != single[i].shape \
+                    or not torch.isfinite(got[i]).all() \
+                    or not shard_close(f"sharded {arch} {what}", got[i],
+                                       single[i], f32[i]):
+                fail(f"sharded {arch} {what} logits differ from one rank's")
+    wl = res["paths"]["11 whisper-base sharded"]["launches"]
+    if min(wl["flash_attention"], wl["decode_attention"]) < 1:
+        fail(f"sharded whisper-base did not run flash and decode: {wl}")
+    pg = res["paged"]
+    print(f"sharded paged gemma-2b engine: {pg['hits']} prefix hit(s), "
+          f"{pg['prefills']} prefills, resumed request "
+          f"{'=' if pg['tokens'][0] == pg['dense'][0] else '!='} the "
+          f"uninterrupted sharded engine's tokens; launches "
+          f"{res['paths']['11 gemma-2b sharded paged engine']['launches']}",
+          flush=True)
+    if pg["hits"] != 1 or pg["prefills"] != 3 or not pg["returned"] \
+            or pg["tokens"][0] != pg["dense"][0]:
+        fail(f"the sharded paged engine: {pg}")
+    pool = res["pool"]
+    print(f"paged kernel on rank 0's qwen2-vl-2b pools (bf16): {pool}",
+          flush=True)
+    qcfg, m = _cfg("qwen2-vl-2b"), SHARD_MESH[1]
+    if res["paths"]["11 qwen2-vl-2b paged pool"]["launches"][
+            "paged_attention"] != pool["layers"] \
+            or pool["heads"] != (qcfg.n_heads // m, qcfg.n_kv_heads // m):
+        fail("the paged kernel did not run once per layer on a rank's pool")
     gaps = refs["moe_bf16_gap"]
     print("deepseek-moe-16b one rank, bf16 vs float32 (prefill, decode) of "
           "the float32 rms: " + ", ".join(
@@ -2352,6 +2581,17 @@ def main(argv=None) -> None:
     if srv.stats["n_served"] != 12 \
             or per_server != cpu_srv.stats["per_server_served"]:
         fail("the paged fleet did not serve 12 of 12 as the CPU fleet does")
+    # the serving example (the JAX package's examples/perllm_serving.py)
+    from repro_torch.examples import perllm_serving
+    ex = run_path("serving example", lambda: perllm_serving.main([]))
+    print(f"serving example: executed {ex['done']}/{ex['requests']} on the "
+          f"card's engines (edge0, edge1, cloud) {ex['per_engine']}; "
+          f"launches {paths['serving example']}", flush=True)
+    if ex["done"] != ex["requests"] or min(
+            paths["serving example"][k]
+            for k in ("flash_attention", "decode_attention")) < 1:
+        fail("the serving example did not run every request on the card")
+    del ex
 
     # 8. MoE and MLA at full width, each freed before the next
     def run_path_out(name, fn):

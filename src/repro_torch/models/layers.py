@@ -346,27 +346,10 @@ def mla_layer(p, x, *, cfg: ModelConfig, mode: str, cache=None, pos=None,
     that width (as the JAX package pads it). Decode is the weight-absorbed
     latent form in float32: the cache is never expanded to per-head K/V.
     The cache tensors are updated in place. Returns (out, cache')."""
-    m = cfg.mla
     b, s, _ = x.shape
-    h = cfg.n_heads
-    dn, dr, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
-    qk_hd = dn + dr
-    scale = 1.0 / math.sqrt(qk_hd)
-
-    if positions is None:
-        if mode == "decode":
-            positions = torch.as_tensor(pos, device=x.device).reshape(-1, 1)
-            positions = positions.expand(b, s)
-        else:
-            positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
-
-    q = (rmsnorm(p["q_norm"], x @ p["wq_a"]) @ p["wq_b"]).view(b, s, h, qk_hd)
-    q_nope, q_rope = q.split([dn, dr], dim=-1)
-    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
-
-    ckv, krope = (x @ p["wkv_a"]).split([m.kv_lora_rank, dr], dim=-1)
-    ckv = rmsnorm(p["kv_norm"], ckv)
-    krope = apply_rope(krope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+    positions = mla_positions(x, mode, pos, positions)
+    cq, ckv, krope = mla_latents(p, x, cfg=cfg, positions=positions)
+    q_nope, q_rope = mla_queries(cq, p["wq_b"], cfg=cfg, positions=positions)
 
     new_cache = None
     if mode == "decode":
@@ -375,34 +358,95 @@ def mla_layer(p, x, *, cfg: ModelConfig, mode: str, cache=None, pos=None,
         update_cache_seq(cache["ckv"], ckv, pos)
         update_cache_seq(cache["krope"], krope, pos)
         new_cache = cache
-        # weight-absorbed decode: attend in the r-dim latent space
-        wkv = p["wkv_b"].view(m.kv_lora_rank, h, dn + dv).float()
-        f32 = torch.float32
-        q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope.float(), wkv[..., :dn])
-        ckv_f = cache["ckv"].to(f32)
-        logits = (torch.einsum("bqhr,bkr->bhqk", q_lat, ckv_f)
-                  + torch.einsum("bqhd,bkd->bhqk", q_rope.float(),
-                                 cache["krope"].to(f32))) * scale
-        t = ckv_f.shape[1]
-        posv = torch.as_tensor(pos, device=x.device).reshape(-1, 1)
-        valid = (torch.arange(t, device=x.device)[None, :] <= posv)
-        logits = logits.masked_fill(~valid[:, None, None, :], -1e30)
-        probs = torch.softmax(logits, dim=-1)
-        out_lat = torch.einsum("bhqk,bkr->bqhr", probs, ckv_f)
-        out = torch.einsum("bqhr,rhd->bqhd", out_lat,
-                           wkv[..., dn:]).to(x.dtype)
+        out = mla_absorbed_decode(p["wkv_b"], q_nope, q_rope, cache["ckv"],
+                                  cache["krope"], pos, cfg=cfg)
     else:
         if mode == "prefill" and cache is not None:
             cache["ckv"][:, :s] = ckv
             cache["krope"][:, :s] = krope
             new_cache = cache
-        kv_up = (ckv @ p["wkv_b"]).view(b, s, h, dn + dv)
-        k_nope, v = kv_up.split([dn, dv], dim=-1)
-        q_full = torch.cat([q_nope, q_rope], dim=-1)
-        k_full = torch.cat([k_nope, krope[:, :, None, :].expand(b, s, h, dr)],
-                           dim=-1)
-        vp = F.pad(v, (0, qk_hd - dv))
-        out = attn_op(q_full, k_full, vp, causal=True, window=0,
-                      scale=scale)[..., :dv]
-    out = out.reshape(b, s, h * dv) @ p["wo"]
-    return out, new_cache
+        out = mla_prefill_attention(p["wkv_b"], q_nope, q_rope, ckv, krope,
+                                    cfg=cfg)
+    return out.reshape(b, s, -1) @ p["wo"], new_cache
+
+
+def mla_positions(x, mode: str, pos, positions):
+    """(B, S) positions of an MLA layer's tokens: ``positions`` where given,
+    else ``pos`` at decode and 0..S-1 otherwise."""
+    if positions is not None:
+        return positions
+    b, s, _ = x.shape
+    if mode == "decode":
+        return torch.as_tensor(pos, device=x.device).reshape(-1, 1).expand(
+            b, s)
+    return torch.arange(s, device=x.device)[None, :].expand(b, s)
+
+
+def mla_latents(p, x, *, cfg: ModelConfig, positions):
+    """(the normed query latent (B, S, q_lora_rank), the normed KV latent
+    (B, S, kv_lora_rank), the rotated shared rope key (B, S, rope_dim))."""
+    m = cfg.mla
+    cq = rmsnorm(p["q_norm"], x @ p["wq_a"])
+    ckv, krope = (x @ p["wkv_a"]).split([m.kv_lora_rank,
+                                         m.qk_rope_head_dim], dim=-1)
+    ckv = rmsnorm(p["kv_norm"], ckv)
+    krope = apply_rope(krope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+    return cq, ckv, krope
+
+
+def mla_queries(cq, wq_b, *, cfg: ModelConfig, positions):
+    """(q_nope, rotated q_rope), each (B, S, heads, dim), for the heads
+    whose columns ``wq_b`` holds."""
+    m = cfg.mla
+    b, s, _ = cq.shape
+    qk_hd = m.qk_nope_head_dim + m.qk_rope_head_dim
+    q = (cq @ wq_b).view(b, s, -1, qk_hd)
+    q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def mla_absorbed_decode(wkv_b, q_nope, q_rope, ckv_cache, krope_cache, pos,
+                        *, cfg: ModelConfig):
+    """The weight-absorbed decode in float32 for the heads of ``q_nope``
+    (B, 1, heads, nope) and ``wkv_b``'s columns, over whole latent caches
+    (B, T, rank) whose slots up to ``pos`` are valid. Returns (B, 1, heads,
+    v_head_dim) in the queries' dtype."""
+    m = cfg.mla
+    dn, dv = m.qk_nope_head_dim, m.v_head_dim
+    scale = 1.0 / math.sqrt(dn + m.qk_rope_head_dim)
+    h = q_nope.shape[2]
+    f32 = torch.float32
+    wkv = wkv_b.view(m.kv_lora_rank, h, dn + dv).float()
+    q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope.float(), wkv[..., :dn])
+    ckv_f = ckv_cache.to(f32)
+    logits = (torch.einsum("bqhr,bkr->bhqk", q_lat, ckv_f)
+              + torch.einsum("bqhd,bkd->bhqk", q_rope.float(),
+                             krope_cache.to(f32))) * scale
+    t = ckv_f.shape[1]
+    posv = torch.as_tensor(pos, device=q_nope.device).reshape(-1, 1)
+    valid = (torch.arange(t, device=q_nope.device)[None, :] <= posv)
+    logits = logits.masked_fill(~valid[:, None, None, :], -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    out_lat = torch.einsum("bhqk,bkr->bqhr", probs, ckv_f)
+    return torch.einsum("bqhr,rhd->bqhd", out_lat,
+                        wkv[..., dn:]).to(q_nope.dtype)
+
+
+def mla_prefill_attention(wkv_b, q_nope, q_rope, ckv, krope, *,
+                          cfg: ModelConfig):
+    """Causal attention of the heads of ``q_nope`` (and ``wkv_b``'s
+    columns) over the expanded latent: the flash kernel at head_dim
+    ``nope + rope``, V zero-padded to it. Returns (B, S, heads,
+    v_head_dim)."""
+    m = cfg.mla
+    dn, dr, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    qk_hd = dn + dr
+    b, s, h, _ = q_nope.shape
+    kv_up = (ckv @ wkv_b).view(b, s, h, dn + dv)
+    k_nope, v = kv_up.split([dn, dv], dim=-1)
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    k_full = torch.cat([k_nope, krope[:, :, None, :].expand(b, s, h, dr)],
+                       dim=-1)
+    vp = F.pad(v, (0, qk_hd - dv))
+    return attn_op(q_full, k_full, vp, causal=True, window=0,
+                   scale=1.0 / math.sqrt(qk_hd))[..., :dv]

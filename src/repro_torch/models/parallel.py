@@ -427,24 +427,28 @@ def shard_params(full_tree, ctx: ParallelContext):
 # ---------------------------------------------------------------------------
 
 KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all")
-_COUNTS: Dict[str, list] = {k: [0, 0] for k in KINDS}
+_COUNTS: Dict[str, list] = {k: [0, 0, 0] for k in KINDS}
 
 
 def reset_collectives() -> None:
     for k in KINDS:
-        _COUNTS[k] = [0, 0]
+        _COUNTS[k] = [0, 0, 0]
 
 
 def collective_counts() -> dict:
-    """{kind: {"calls", "bytes"}} since the last reset: result bytes of
-    each call on this rank (the dry run counts an all-reduce twice, as the
-    JAX package's ``collective_bytes`` does)."""
-    return {k: {"calls": c, "bytes": b} for k, (c, b) in _COUNTS.items()}
+    """{kind: {"calls", "bytes", "largest"}} since the last reset: the
+    calls, their result bytes on this rank (the dry run counts an
+    all-reduce twice, as the JAX package's ``collective_bytes`` does) and
+    the largest result of one call."""
+    return {k: {"calls": c, "bytes": b, "largest": m}
+            for k, (c, b, m) in _COUNTS.items()}
 
 
 def _count(kind: str, out: torch.Tensor) -> None:
+    n = out.numel() * out.element_size()
     _COUNTS[kind][0] += 1
-    _COUNTS[kind][1] += out.numel() * out.element_size()
+    _COUNTS[kind][1] += n
+    _COUNTS[kind][2] = max(_COUNTS[kind][2], n)
 
 
 def _run(kind: str, ctx: ParallelContext, fn, out, *ins):
@@ -532,6 +536,22 @@ class _AllReduce(torch.autograd.Function):
         return g, None, None
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """Sum over `axes` whose backward is the sum over `axes` too: each
+    rank's consumers of the sum differ (a norm's sum of squares over
+    channels split across the ranks, each rank scaling its own channels),
+    so each holds a partial gradient of it."""
+
+    @staticmethod
+    def forward(fctx, x, ctx, axes):
+        fctx.ctx, fctx.axes = ctx, axes
+        return _all_reduce_raw(x, ctx, axes)
+
+    @staticmethod
+    def backward(fctx, g):
+        return _all_reduce_raw(g, fctx.ctx, fctx.axes), None, None
+
+
 class _CopyTo(torch.autograd.Function):
     """The identity; the backward sums the gradient over `axes`
     (Megatron's f: each rank's consumer saw only its shard's columns)."""
@@ -599,13 +619,18 @@ def _trivial(ctx, axes) -> bool:
     return ctx.axis_size(axes) == 1
 
 
-def all_reduce(x, ctx: ParallelContext, axes, op: str = "sum"):
-    """Sum (differentiable, identity backward) or max (no gradient) of `x`
-    over `axes`."""
+def all_reduce(x, ctx: ParallelContext, axes, op: str = "sum",
+               grad: str = "identity"):
+    """Sum or max (no gradient) of `x` over `axes`. The sum's backward is
+    the identity (``grad="identity"``: its consumers run the same on every
+    rank, Megatron's g) or the sum over `axes` (``grad="sum"``: each rank
+    consumes it on its own shard)."""
     if _trivial(ctx, axes):
         return x
     if op == "max":
         return _all_reduce_raw(x.detach(), ctx, axes, "max")
+    if grad == "sum":
+        return _AllReduceSum.apply(x, ctx, axes)
     return _AllReduce.apply(x, ctx, axes)
 
 

@@ -111,12 +111,22 @@ def rglru_layer(p, x, *, cfg: ModelConfig, mode: str, cache=None):
     cache'); the cache's tensors are updated in place for prefill and
     decode."""
     gate = F.gelu(x @ p["w_gate_in"], approximate="tanh")
-    u = x @ p["w_rec_in"]
+    y, new_cache = recurrence(p, x @ p["w_rec_in"], mode=mode, cache=cache)
+    y = (gate.float() * y).to(x.dtype)
+    return y @ p["out_proj"], new_cache
 
+
+def recurrence(p, u, *, mode: str, cache=None):
+    """The recurrence branch after its input projection: the causal conv
+    and the RG-LRU over the channels of ``u`` (B, S, C), with ``p``'s conv
+    kernel and gate vectors for those channels. Returns (y (B, S, C)
+    float32, cache'), the cache updated in place for prefill and decode.
+    Every op is per channel, so a rank of a mesh runs it on its own
+    channels alone."""
     if mode == "decode":
-        if x.shape[1] != 1:
+        if u.shape[1] != 1:
             raise ValueError(f"decode takes one token per row, got "
-                             f"{x.shape[1]}")
+                             f"{u.shape[1]}")
         u, conv_state = _conv_causal(u, p["conv"], cache["conv"])
         a, gi = _gates(p, u[:, 0])
         h = a * cache["h"] + gi
@@ -135,6 +145,4 @@ def rglru_layer(p, x, *, cfg: ModelConfig, mode: str, cache=None):
             cache["h"].copy_(y[:, -1])
             cache["conv"].copy_(conv_state)
             new_cache = cache
-
-    y = (gate.float() * y).to(x.dtype)
-    return y @ p["out_proj"], new_cache
+    return y, new_cache

@@ -136,8 +136,7 @@ def ssm_layer(p, x, *, cfg: ModelConfig, mode: str, cache=None):
     """The Mamba-2 mixing layer (no residual). Returns (out, cache'); the
     cache's tensors are updated in place for prefill and decode."""
     s_cfg, di, nh = _dims(cfg)
-    b, s, _ = x.shape
-    hd = s_cfg.head_dim
+    s = x.shape[1]
     d_conv = s_cfg.d_conv
 
     z = x @ p["wz"]
@@ -147,33 +146,19 @@ def ssm_layer(p, x, *, cfg: ModelConfig, mode: str, cache=None):
     dt = F.softplus((x @ p["w_dt"]).float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
     conv_in = torch.cat([xin, Bm, Cm], dim=-1)
-    split = [di, s_cfg.d_state, s_cfg.d_state]
 
     new_cache = None
     if mode == "decode":
-        if s != 1:
-            raise ValueError(f"decode takes one token per row, got {s}")
         conv_out, conv_state = _causal_conv(conv_in, p["conv"], cache["conv"])
-        xin, Bm, Cm = torch.split(conv_out, split, dim=-1)
-        xh = xin.reshape(b, nh, hd).float()
-        dt1 = dt[:, 0]                                      # (B, H)
-        da = torch.exp(dt1 * A)
-        upd = torch.einsum("bh,bhp,bn->bhpn", dt1, xh, Bm[:, 0].float())
-        state = cache["state"] * da[:, :, None, None] + upd
-        y = torch.einsum("bn,bhpn->bhp", Cm[:, 0].float(), state)
-        y = y + p["D"][:, None] * xh
-        y = y.reshape(b, 1, di).to(x.dtype)
+        y, state = ssd_mix(conv_out, dt, A, p["D"], s_cfg=s_cfg, mode=mode,
+                           state=cache["state"], dtype=x.dtype)
         cache["state"].copy_(state)
         cache["conv"].copy_(conv_state)
         new_cache = cache
     else:
         conv_out, _ = _causal_conv(conv_in, p["conv"])
-        xin, Bm, Cm = torch.split(conv_out, split, dim=-1)
-        xh = xin.reshape(b, s, nh, hd)
-        y, final_state = ssd_chunked(xh, dt, A, Bm, Cm,
-                                     min(s_cfg.chunk_size, s))
-        y = y + p["D"][None, None, :, None] * xh.to(y.dtype)
-        y = y.reshape(b, s, di)
+        y, final_state = ssd_mix(conv_out, dt, A, p["D"], s_cfg=s_cfg,
+                                 mode=mode, dtype=x.dtype)
         if mode == "prefill" and cache is not None:
             # the conv state is the prompt's last d_conv - 1 inputs (bucket
             # padding included, as in the JAX package)
@@ -185,3 +170,32 @@ def ssm_layer(p, x, *, cfg: ModelConfig, mode: str, cache=None):
 
     y = rmsnorm(p["norm"], y * F.silu(z)).to(x.dtype)
     return y @ p["out_proj"], new_cache
+
+
+def ssd_mix(conv_out, dt, A, D, *, s_cfg, mode: str, state=None, dtype):
+    """The SSD over the conv's output ``[x | B | C]`` (B, S, H*P + 2N),
+    for the H heads of ``dt`` (B, S, H), ``A`` and ``D`` (H,): decode steps
+    ``state`` (B, H, P, N) float32 by one token, train and prefill run
+    `ssd_chunked`. Returns (y (B, S, H*P), the new or final state). The
+    heads are independent (B and C are one group shared by all), so a rank
+    of a mesh runs it on its own heads alone."""
+    b, s, _ = conv_out.shape
+    n, hd = s_cfg.d_state, s_cfg.head_dim
+    nh = dt.shape[-1]
+    xin, Bm, Cm = torch.split(conv_out, [nh * hd, n, n], dim=-1)
+    if mode == "decode":
+        if s != 1:
+            raise ValueError(f"decode takes one token per row, got {s}")
+        xh = xin.reshape(b, nh, hd).float()
+        dt1 = dt[:, 0]                                      # (B, H)
+        da = torch.exp(dt1 * A)
+        upd = torch.einsum("bh,bhp,bn->bhpn", dt1, xh, Bm[:, 0].float())
+        state = state * da[:, :, None, None] + upd
+        y = torch.einsum("bn,bhpn->bhp", Cm[:, 0].float(), state)
+        y = y + D[:, None] * xh
+        return y.reshape(b, 1, nh * hd).to(dtype), state
+    xh = xin.reshape(b, s, nh, hd)
+    y, final_state = ssd_chunked(xh, dt, A, Bm, Cm,
+                                 min(s_cfg.chunk_size, s))
+    y = y + D[None, None, :, None] * xh.to(y.dtype)
+    return y.reshape(b, s, nh * hd), final_state

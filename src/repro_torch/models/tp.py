@@ -19,14 +19,25 @@ for the JAX package, through the counted helpers of `models/parallel.py`:
   products on the rank's hidden columns, an all-reduce after.
 * the vocabulary-parallel embedding (a masked local gather and an
   all-reduce) and head (local logits, gathered over the vocabulary).
-* every other layer (Mamba-2, RG-LRU, MLA) gathers its parameters and
-  cache over the model axis and runs as on one device
-  (`replicated_layer`): GSPMD's all-gather in front of an op it has no
-  sharded form for.
+* the Mamba-2, RG-LRU and MLA mixers on the rank's heads or channels
+  (`mixer_layer`): column-parallel input projections, the SSD (with the
+  ssd_diag kernel), the doubling scan and MLA's flash prefill on the local
+  heads or channels, the replicated small leaves (B, C and dt projections,
+  conv kernels, gate vectors, the latent projections and norms) computed
+  whole or sliced to the rank's part, the row-parallel output projection
+  ending in an all-reduce. Mamba-2's gated norm spans all channels (a
+  float32 all-reduce of the sums of squares), its conv state's shard does
+  not line up with the heads (one all-gather of it a decode step) and an
+  MLA decode attends over the whole latent cache (one all-gather of it a
+  layer a step). Only where the heads or channels do not divide the model
+  axis, and the rules left every leaf whole, does a mixer run as on one
+  device (`replicated_layer`).
 
 Gradients follow Megatron's rules: a tensor that the model axis holds whole
 enters a column-parallel product through `copy_to` (its gradient summed),
-and a row-parallel product's all-reduce passes its gradient unchanged.
+and a row-parallel product's all-reduce passes its gradient unchanged. A
+replicated leaf that a rank uses on its own slice or partial sum has a
+partial gradient, summed over the model axis the same way.
 """
 from __future__ import annotations
 
@@ -34,11 +45,14 @@ import functools
 import math
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
 from repro_torch.models import parallel as PAR
+from repro_torch.models import rglru as RG
+from repro_torch.models import ssm as SSM
 from repro_torch.models.parallel import ParallelContext
 
 
@@ -143,7 +157,15 @@ def kernel_shapes(cfg: ModelConfig, ctx: ParallelContext):
     kernels in `cfg`'s sharded attention layers: its own q-heads with the
     kv-heads they read (one copy a q-head where a group would split
     unevenly), and, for a decode whose cache splits its sequence over the
-    model axis, every q-head on every kv-head."""
+    model axis, every q-head on every kv-head. An MLA layer runs flash
+    alone (its decode is latent matrix products), at head_dim ``nope +
+    rope`` on the rank's q-heads, each with its own keys."""
+    if cfg.mla is not None:
+        h = cfg.n_heads
+        if mixer_sharded("mla", cfg, ctx):
+            h //= ctx.model_size
+        d = cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim
+        return {"flash": (h, h, d)}
     hs = _Heads(cfg, ctx)
     hq = hs.h1 - hs.h0
     if hs.kv_local:
@@ -438,6 +460,267 @@ def cp_combine(out, lse, ctx: ParallelContext, axes):
     num = PAR.all_reduce(num, ctx, axes)
     res = num[..., :-1] / torch.clamp(num[..., -1:], min=1e-30)
     return res[:, None].to(out.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2, RG-LRU and MLA mixers on the rank's heads or channels
+# ---------------------------------------------------------------------------
+
+
+def _mixer_units(kind: str, cfg: ModelConfig) -> int:
+    """What a mixer splits over the model axis: Mamba-2's and MLA's heads,
+    RG-LRU's channels."""
+    if kind == "ssm":
+        return SSM._dims(cfg)[2]
+    if kind == "rec":
+        return RG._d_rnn(cfg)
+    return cfg.n_heads
+
+
+def mixer_sharded(kind: str, cfg: ModelConfig, ctx: ParallelContext) -> bool:
+    """Whether a rank runs this mixer on its own heads or channels: they
+    divide the model axis, so the rules split its column- and row-parallel
+    leaves on whole heads (else every leaf stays whole)."""
+    m = ctx.model_size
+    return m > 1 and _mixer_units(kind, cfg) % m == 0
+
+
+def _rank_slice(n: int, ctx: ParallelContext) -> slice:
+    """This rank's slice of `n` units split evenly over the model axis."""
+    c = n // ctx.model_size
+    r = ctx.axis_index(_ma(ctx))
+    return slice(r * c, (r + 1) * c)
+
+
+def summed_grads(ctx: ParallelContext, *ts):
+    """The replicated leaves `ts` as they are, their gradients summed over
+    the model axis: a rank uses them on its own slice or for its partial
+    sum, so its gradient is partial (one `copy_to` a dtype)."""
+    if not (torch.is_grad_enabled() and any(t.requires_grad for t in ts)):
+        return ts
+    out = list(ts)
+    for dt in {t.dtype for t in ts}:
+        idx = [i for i, t in enumerate(ts) if t.dtype == dt]
+        flat = PAR.copy_to(torch.cat([ts[i].reshape(-1) for i in idx]), ctx,
+                           _ma(ctx))
+        for i, piece in zip(idx, flat.split([ts[i].numel() for i in idx]),
+                            strict=True):
+            out[i] = piece.view_as(ts[i])
+    return tuple(out)
+
+
+def _split_last(cspec, key) -> bool:
+    return cspec is not None and cspec[key][-1] is not None
+
+
+def _gather_pieces(pieces, ctx: ParallelContext):
+    """All-gather several tensors of (B, ...) over the model axis in one
+    call: per tensor, the ranks' pieces stacked on a new leading dim (m,
+    B, ...)."""
+    b = pieces[0].shape[0]
+    flat = torch.cat([t.reshape(b, -1) for t in pieces], dim=-1)
+    g = PAR.all_gather(flat[None], ctx, _ma(ctx), 0)
+    out, i = [], 0
+    for t in pieces:
+        n = t[0].numel()
+        out.append(g[..., i:i + n].reshape((g.shape[0],) + tuple(t.shape)))
+        i += n
+    return out
+
+
+def _join_last(stacked):
+    """(m, B, ..., c) pieces of a last dim split over the model axis ->
+    (B, ..., m * c)."""
+    return torch.cat(stacked.unbind(0), dim=-1)
+
+
+def rglru_layer(p, x, *, cfg: ModelConfig, ctx: ParallelContext, mode: str,
+                cache=None, cspec=None):
+    """`rglru.rglru_layer` on this rank's ``d_rnn / m`` channels: the gate
+    and input projections' columns, the conv kernel and gate vectors
+    sliced to them, the cache's ``h``/``conv`` shards as they lie, and the
+    row-parallel output projection."""
+    sl = _rank_slice(RG._d_rnn(cfg), ctx)
+    xin = PAR.copy_to(x, ctx, _ma(ctx))
+    gate = F.gelu(xin @ p["w_gate_in"], approximate="tanh")
+    names = ("conv", "w_a", "b_a", "w_x", "b_x", "lam")
+    rep = summed_grads(ctx, *(p[n] for n in names))
+    local = {n: t[..., sl] for n, t in zip(names, rep, strict=True)}
+    y, new_cache = RG.recurrence(local, xin @ p["w_rec_in"], mode=mode,
+                                 cache=cache)
+    y = (gate.float() * y).to(x.dtype)
+    return sum_partials(wide(y) @ wide(p["out_proj"]), ctx, x.dtype), \
+        new_cache
+
+
+def ssm_layer(p, x, *, cfg: ModelConfig, ctx: ParallelContext, mode: str,
+              cache=None, cspec=None):
+    """`ssm.ssm_layer` on this rank's ``H / m`` heads (their ``wz``/``wx``
+    columns, ``dt``, ``A``, ``D``, conv channels and the SSD with the
+    ssd_diag kernel); the B and C projections (one group, shared by every
+    head) computed whole. The conv state's shard (its channels split
+    evenly, which does not line up with [x | B | C]) is gathered whole
+    with the step's x row in one all-gather a decode step, and the rank's
+    shard of the new state written back. The gated norm spans all channels:
+    its sums of squares are summed over the model axis in float32."""
+    s_cfg, di, nh = SSM._dims(cfg)
+    b, s, _ = x.shape
+    n, hd, k = s_cfg.d_state, s_cfg.head_dim, s_cfg.d_conv
+    hs = _rank_slice(nh, ctx)
+    cs = slice(hs.start * hd, hs.stop * hd)
+    ma = _ma(ctx)
+    xin = PAR.copy_to(x, ctx, ma)
+    wB, wC, w_dt, dt_bias, A_log, D, kern, scale = summed_grads(
+        ctx, p["wB"], p["wC"], p["w_dt"], p["dt_bias"], p["A_log"], p["D"],
+        p["conv"], p["norm"]["scale"])
+    z = xin @ p["wz"]
+    xl = xin @ p["wx"]
+    Bm, Cm = xin @ wB, xin @ wC
+    dt = F.softplus((xin @ w_dt).float() + dt_bias)[..., hs]
+    A = -torch.exp(A_log[hs])
+    conv_in = torch.cat([xl, Bm, Cm], dim=-1)
+    kern = torch.cat([kern[:, cs], kern[:, di:]], dim=-1)
+
+    new_cache = None
+    if mode == "decode":
+        with torch.no_grad():
+            if _split_last(cspec, "conv"):
+                old, row = _gather_pieces([cache["conv"], xl], ctx)
+                old, row = _join_last(old), _join_last(row)
+            else:
+                old, row = cache["conv"], PAR.all_gather(xl, ctx, ma, -1)
+        state = torch.cat([old[..., cs], old[..., di:]], dim=-1)
+        conv_out, _ = SSM._causal_conv(conv_in, kern, state)
+        y, st = SSM.ssd_mix(conv_out, dt, A, D[hs], s_cfg=s_cfg, mode=mode,
+                            state=cache["state"], dtype=x.dtype)
+        with torch.no_grad():
+            whole = torch.cat([old, torch.cat([row, Bm, Cm], -1)], 1)[:, 1:]
+            cache["state"].copy_(st)
+            cache["conv"].copy_(_conv_shard(whole, cspec, ctx))
+        new_cache = cache
+    else:
+        conv_out, _ = SSM._causal_conv(conv_in, kern)
+        y, final_state = SSM.ssd_mix(conv_out, dt, A, D[hs], s_cfg=s_cfg,
+                                     mode=mode, dtype=x.dtype)
+        if mode == "prefill" and cache is not None:
+            with torch.no_grad():
+                keep = min(k - 1, s)
+                tail = torch.cat([PAR.all_gather(xl[:, s - keep:], ctx, ma,
+                                                 -1),
+                                  Bm[:, s - keep:], Cm[:, s - keep:]], -1)
+                cache["state"].copy_(final_state)
+                cache["conv"].zero_()
+                cache["conv"][:, k - 1 - keep:] = _conv_shard(tail, cspec,
+                                                              ctx)
+            new_cache = cache
+
+    g = (y * F.silu(z)).float()
+    ss = PAR.all_reduce(g.square().sum(-1, keepdim=True), ctx, ma,
+                        grad="sum")
+    g = g * torch.rsqrt(ss / di + 1e-6) * (1.0 + scale[cs])
+    y = g.to(torch.promote_types(y.dtype, z.dtype)).to(x.dtype)
+    return sum_partials(wide(y) @ wide(p["out_proj"]), ctx, x.dtype), \
+        new_cache
+
+
+def _conv_shard(t, cspec, ctx):
+    """This rank's shard of a whole conv-state tensor (..., C)."""
+    if not _split_last(cspec, "conv"):
+        return t
+    return PAR.local_view(t, (None,) * (t.ndim - 1) + (_ma(ctx),), ctx)
+
+
+def mla_layer(p, x, *, cfg: ModelConfig, ctx: ParallelContext, mode: str,
+              cache=None, cspec=None, pos=None, positions=None):
+    """`layers.mla_layer` on this rank's ``H / m`` heads (their ``wq_b``,
+    ``wkv_b`` and ``wo`` columns and rows; the flash prefill on them). The
+    latents (``wq_a``, ``wkv_a`` and both norms, replicated) are computed
+    whole and enter the rank's products through `copy_to`. The cache's
+    ``ckv``/``krope`` shards (their last dims over the model axis) take the
+    rank's part of the new rows; a decode gathers them whole (one
+    all-gather a layer a step), since the absorbed decode reads every
+    slot's whole latent."""
+    b, s, _ = x.shape
+    ma = _ma(ctx)
+    positions = L.mla_positions(x, mode, pos, positions)
+    cq, ckv, krope = L.mla_latents(p, x, cfg=cfg, positions=positions)
+    q_nope, q_rope = L.mla_queries(PAR.copy_to(cq, ctx, ma), p["wq_b"],
+                                   cfg=cfg, positions=positions)
+
+    def shard(t, key):
+        if not _split_last(cspec, key):
+            return t
+        return PAR.local_view(t, (None, None, ma), ctx)
+
+    new_cache = None
+    if mode == "decode":
+        if s != 1:
+            raise ValueError(f"decode takes one token per row, got {s}")
+        with torch.no_grad():
+            L.update_cache_seq(cache["ckv"], shard(ckv, "ckv"), pos)
+            L.update_cache_seq(cache["krope"], shard(krope, "krope"), pos)
+            keys = [key for key in ("ckv", "krope") if _split_last(cspec,
+                                                                   key)]
+            whole = dict(cache)
+            if keys:
+                got = _gather_pieces([cache[key] for key in keys], ctx)
+                whole.update({key: _join_last(g)
+                              for key, g in zip(keys, got, strict=True)})
+        new_cache = cache
+        out = L.mla_absorbed_decode(p["wkv_b"], q_nope, q_rope, whole["ckv"],
+                                    whole["krope"], pos, cfg=cfg)
+    else:
+        if mode == "prefill" and cache is not None:
+            with torch.no_grad():
+                cache["ckv"][:, :s] = shard(ckv, "ckv")
+                cache["krope"][:, :s] = shard(krope, "krope")
+            new_cache = cache
+        out = L.mla_prefill_attention(
+            p["wkv_b"], q_nope, q_rope, PAR.copy_to(ckv, ctx, ma),
+            PAR.copy_to(krope, ctx, ma), cfg=cfg)
+    out = out.reshape(b, s, -1)
+    return sum_partials(wide(out) @ wide(p["wo"]), ctx, x.dtype), new_cache
+
+
+_MIXERS = {"ssm": ssm_layer, "rec": rglru_layer, "mla": mla_layer}
+
+
+def _whole_cache_specs(cache, ctx: ParallelContext):
+    """The model-axis specs of a mixer's cache held whole (no batch split),
+    by leaf name as `launch.shardings.cache_specs_tree` cuts it: ``state``
+    on its heads, every other leaf on its last dim."""
+    def one(name, t):
+        spec = [None] * t.ndim
+        dim = 1 if name == "state" else t.ndim - 1
+        if t.shape[dim] % ctx.model_size == 0:
+            spec[dim] = ctx.model_axis
+        return tuple(spec)
+    return {key: one(key, t) for key, t in cache.items()}
+
+
+def mixer_layer(kind: str, p, x, *, cfg: ModelConfig, ctx: ParallelContext,
+                mode: str, cache=None, cspec=None, pos=None, positions=None):
+    """A Mamba-2 (``ssm``), RG-LRU (``rec``) or MLA (``mla``) mixer on this
+    rank's shards (`mixer_sharded` must hold). A cache held whole (no
+    ``cspec``) is cut to this rank's shard for the layer and gathered back
+    after it."""
+    fn = _MIXERS[kind]
+    kw = dict(cfg=cfg, ctx=ctx, mode=mode)
+    if kind == "mla":
+        kw.update(pos=pos, positions=positions)
+    if cache is None or cspec is not None:
+        return fn(p, x, cache=cache, cspec=cspec, **kw)
+    specs = _whole_cache_specs(cache, ctx)
+    with torch.no_grad():
+        local = {key: PAR.local_view(t, specs[key], ctx).clone()
+                 for key, t in cache.items()}
+    out, new_cache = fn(p, x, cache=local, cspec=specs, **kw)
+    if new_cache is None:
+        return out, None
+    with torch.no_grad():
+        for key, t in cache.items():
+            t.copy_(PAR.gather_tree(local[key], specs[key], ctx))
+    return out, cache
 
 
 # ---------------------------------------------------------------------------

@@ -210,26 +210,32 @@ def apply_layer(spec: LayerSpec, p, x, *, cfg: ModelConfig, mode: str,
 def _apply_layer_sharded(spec: LayerSpec, p, x, *, cfg: ModelConfig,
                          mode: str, cache, pos, positions, enc_out, ctx,
                          cspec):
-    """`apply_layer` on local shards (`models/tp.py`). Mamba-2, RG-LRU and
-    MLA layers have no sharded form here: they run on their parameters and
-    cache gathered over the model axis."""
+    """`apply_layer` on local shards (`models/tp.py`). A Mamba-2, RG-LRU or
+    MLA mixer runs on the rank's heads or channels (`tp.mixer_layer`), or,
+    where they do not divide the model axis and the rules left its leaves
+    whole, as on one device."""
     from repro_torch.models import tp as TP
+    h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
     if spec.kind in ("ssm", "rec", "mla"):
-        def mix_fn(pw, h, cw):
-            if spec.kind == "ssm":
-                return SSM.ssm_layer(pw, h, cfg=cfg, mode=mode, cache=cw)
-            if spec.kind == "rec":
-                return RG.rglru_layer(pw, h, cfg=cfg, mode=mode, cache=cw)
-            return L.mla_layer(pw, h, cfg=cfg, mode=mode, cache=cw, pos=pos,
-                               positions=positions)
-        pspecs = TP.layer_param_specs(cfg, spec, ctx)["mix"]
-        h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
-        mix, new_cache = TP.replicated_layer(mix_fn, p["mix"], h, cache,
-                                             cspec, pspecs, ctx)
+        if TP.mixer_sharded(spec.kind, cfg, ctx):
+            mix, new_cache = TP.mixer_layer(
+                spec.kind, p["mix"], h, cfg=cfg, ctx=ctx, mode=mode,
+                cache=cache, cspec=cspec, pos=pos, positions=positions)
+        else:
+            def mix_fn(pw, h, cw):
+                if spec.kind == "ssm":
+                    return SSM.ssm_layer(pw, h, cfg=cfg, mode=mode, cache=cw)
+                if spec.kind == "rec":
+                    return RG.rglru_layer(pw, h, cfg=cfg, mode=mode,
+                                          cache=cw)
+                return L.mla_layer(pw, h, cfg=cfg, mode=mode, cache=cw,
+                                   pos=pos, positions=positions)
+            pspecs = TP.layer_param_specs(cfg, spec, ctx)["mix"]
+            mix, new_cache = TP.replicated_layer(mix_fn, p["mix"], h, cache,
+                                                 cspec, pspecs, ctx)
         if spec.kind == "ssm":
             return x + mix, new_cache, {}
     else:
-        h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
         kv_spec = cspec["k"] if cspec is not None else None
         mix, new_cache = L.attention_layer(
             p["mix"], h, cfg=cfg, mode=mode, cache=cache, pos=pos,

@@ -29,11 +29,19 @@ the JAX engine.
 With ``ctx`` (a `ParallelContext` with a mesh) every rank runs the same
 engine over its shards: the weights (`init_params(..., ctx=)`), the slot
 cache (cut by `launch.shardings.cache_specs_tree`: its slots over the data
-axes, its heads, or its sequence for the context-parallel decode, over the
-model axis), the slot rows of each decode step; a prompt prefills on every
-rank into a cache held whole, whose shards go into the slot's owners. The
-logits of every slot are gathered, so every rank samples the same tokens.
-The paged pool has no sharded form.
+axes, its heads, channels or head_dim, or its sequence for the
+context-parallel decode, over the model axis), the slot rows of each decode
+step. A prompt prefills on every rank into a batch-1 cache cut as
+``cache_specs_tree`` cuts a batch of one (over the model axis alone), whose
+rows go into the slot's owners: copied where the slot cache splits a leaf
+the same way, gathered and cut again where it does not (a sequence split
+for the context-parallel decode). The logits of every slot are gathered, so
+every rank samples the same tokens and takes the same admission, allocation
+and prefix decisions. A paged engine's pool holds each rank's shard of
+every leaf in that batch-1 layout, with whole token blocks; pages move at
+prefill, evict, resume, a prefix hit and migration (an evicted slot's row
+is gathered from its owner and cut to the pool's layout), never on a decode
+step.
 """
 from __future__ import annotations
 
@@ -47,6 +55,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as M
 from repro_torch.models import moe as MOE
+from repro_torch.models import parallel as PAR
 from repro_torch.models.parallel import resolve_device
 from repro_torch.obs.metrics import MetricsRegistry, counter_attr, with_aliases
 from repro_torch.serving.kvcache import KVSnapshot, PagedKVCache, PageTable
@@ -103,9 +112,7 @@ class ServingEngine:
         self.params = params
         self.ctx = ctx if ctx is not None and ctx.mesh is not None else None
         if self.ctx is not None:
-            if paged:
-                raise ValueError("the paged KV pool has no sharded form")
-            if cfg.family != "ssm" and cfg.mla is None:
+            if cfg.family != "ssm":
                 from repro_torch.models.tp import check_kernel_shapes
                 check_kernel_shapes(cfg, self.ctx)
             moe_dispatch = ctx.moe_dispatch
@@ -150,7 +157,8 @@ class ServingEngine:
                 else max_batch * (max_seq // kv_block_tokens)
             self.kv = PagedKVCache(cfg, n_blocks=n_blocks,
                                    block_tokens=kv_block_tokens,
-                                   max_seq=max_seq, device=self.device)
+                                   max_seq=max_seq, device=self.device,
+                                   ctx=self.ctx)
 
     # ------------------------------------------------------------------
     def submit(self, prompt: List[int], max_new_tokens: int = 32,
@@ -228,27 +236,61 @@ class ServingEngine:
                 leaf[slot] = one[key][0]
 
     def _insert_slot_sharded(self, slot: int, single_cache) -> None:
-        """Row `slot` of this rank's cache shards from a batch-1 cache held
-        whole: the shard its specs give, where this rank holds the row."""
-        from repro_torch.models.parallel import local_view
+        """Row `slot` of this rank's cache shards from a batch-1 cache in
+        the batch-1 layout (`_one_cache`): each leaf copied where the slot
+        cache splits it the same way over the model axis, else gathered
+        whole and cut as the slot cache is, into the slot's owners."""
         ctx = self.ctx
-        for layer, one, specs in zip(self.cache, single_cache,
-                                     self.cache.specs, strict=True):
+        for layer, one, specs, ospecs in zip(
+                self.cache, single_cache, self.cache.specs,
+                single_cache.specs, strict=True):
             for key, leaf in layer.items():
-                spec = specs[key]
+                spec, t = specs[key], one[key]
+                if tuple(spec[1:]) != tuple(ospecs[key][1:]):
+                    t = PAR.local_view(PAR.gather_tree(t, ospecs[key], ctx),
+                                       (None,) + tuple(spec[1:]), ctx)
                 row = slot
                 if spec[0] is not None:      # slots split over data axes
                     n = leaf.shape[0]
                     if slot // n != ctx.axis_index(spec[0]):
                         continue
                     row = slot % n
-                leaf[row] = local_view(one[key][:1], (None,) + tuple(spec[1:]),
-                                       ctx)[0]
+                leaf[row] = t[0]
+
+    def _one_cache(self):
+        """An empty batch-1 cache for a prefill: under a mesh cut as
+        ``cache_specs_tree`` cuts a batch of one."""
+        return M.init_cache(self.cfg, 1, self.max_seq, device=self.device,
+                            ctx=self.ctx)
 
     def _extract_slot(self, slot: int):
-        """Row `slot` of every cache leaf, as a batch-1 cache of copies."""
-        return [{key: leaf[slot:slot + 1].clone()
-                 for key, leaf in layer.items()} for layer in self.cache]
+        """Row `slot` of every cache leaf, as a batch-1 cache of copies
+        (under a mesh in the batch-1 layout: the row gathered from its owner
+        over the data axes, and cut again where the slot cache splits a
+        leaf otherwise)."""
+        if self.ctx is None:
+            return [{key: leaf[slot:slot + 1].clone()
+                     for key, leaf in layer.items()} for layer in self.cache]
+        ctx = self.ctx
+        out = self._one_cache()
+        for layer, dst, specs, ospecs in zip(self.cache, out,
+                                             self.cache.specs, out.specs,
+                                             strict=True):
+            for key, leaf in layer.items():
+                spec = specs[key]
+                if spec[0] is not None:
+                    n = leaf.shape[0]
+                    rows = PAR.all_gather(leaf[slot % n:slot % n + 1], ctx,
+                                          spec[0], 0)
+                    t = rows[slot // n:slot // n + 1]
+                else:
+                    t = leaf[slot:slot + 1]
+                if tuple(spec[1:]) != tuple(ospecs[key][1:]):
+                    t = PAR.local_view(
+                        PAR.gather_tree(t, (None,) + tuple(spec[1:]), ctx),
+                        ospecs[key], ctx)
+                dst[key].copy_(t)
+        return out
 
     # ------------------------------------------------------------------
     def _admit(self) -> None:
@@ -300,7 +342,7 @@ class ServingEngine:
                                        device=self.device)
                     logits, one_cache = M.decode_step(
                         self.params, tok, one_cache, pos, cfg=self.cfg,
-                        moe_dispatch=self.moe_dispatch)
+                        moe_dispatch=self.moe_dispatch, ctx=self.ctx)
                     self.n_decode_steps += 1
                 last_logits = logits
                 self.n_prefix_hits += 1
@@ -317,8 +359,7 @@ class ServingEngine:
                 padded = req.prompt + [0] * (bucket - plen)
                 prompt = torch.tensor([padded], dtype=torch.long,
                                       device=self.device)
-                one_cache = M.init_cache(self.cfg, 1, self.max_seq,
-                                         device=self.device)
+                one_cache = self._one_cache()
                 batch = {"tokens": prompt}
                 if self.cfg.mrope:
                     batch["positions"] = torch.arange(

@@ -26,6 +26,14 @@ block_tokens, 1, Hkv, D)`, and `pool[:, :, 0]` is the `(n_pool, page, Hkv,
 D)` view that `repro_torch.kernels.ops.paged_attention` reads through a
 page table. The engine's compute view stays the dense per-slot cache, as
 in the JAX package.
+
+Under a mesh (``ctx``) each rank's pool holds its shard of every leaf as
+``launch.shardings.cache_specs_tree`` cuts a batch of one: heads, head_dim
+or channels over the model axis, whole token blocks (a batch of one never
+splits its sequence). The block ids, the allocator and the prefix index are
+the same on every rank, since every rank runs the same host code on the
+same prompts. `store` takes a slot cache in that layout, and `load` gives
+it back so (a `ShardedCache`).
 """
 from __future__ import annotations
 
@@ -37,6 +45,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as M
+from repro_torch.models import parallel as PAR
 from repro_torch.models.parallel import resolve_device
 
 
@@ -253,7 +262,7 @@ class PagedKVCache:
     """Block-pool storage for one engine's KV cache."""
 
     def __init__(self, cfg: ModelConfig, n_blocks: int, block_tokens: int,
-                 max_seq: int, dtype=None, device=None):
+                 max_seq: int, dtype=None, device=None, ctx=None):
         if max_seq % block_tokens:
             raise ValueError(
                 f"block_tokens={block_tokens} must divide max_seq={max_seq}")
@@ -271,9 +280,14 @@ class PagedKVCache:
                                device="meta")
         flat_a, self._structure = _flatten_cache(shape_a)
         flat_b, _ = _flatten_cache(shape_b)
+        self.ctx = ctx if PAR.is_sharded(ctx) else None
+        if self.ctx is not None:
+            from repro_torch.launch.shardings import cache_specs_tree
+            self._spec_tree = cache_specs_tree(cfg, self.ctx, 1, max_seq)
+            specs, _ = _flatten_cache(self._spec_tree)
         self._seq_axis: List[Optional[int]] = []
         self._pools: List[Optional[torch.Tensor]] = []
-        for a, b in zip(flat_a, flat_b, strict=True):
+        for n, (a, b) in enumerate(zip(flat_a, flat_b, strict=True)):
             axis = next((i for i, (x, y)
                          in enumerate(zip(a.shape, b.shape, strict=True))
                          if x != y), None)
@@ -283,7 +297,9 @@ class PagedKVCache:
             if axis is None:
                 self._pools.append(None)
                 continue
-            rest = a.shape[:axis] + a.shape[axis + 1:]
+            shape = tuple(a.shape) if self.ctx is None \
+                else PAR.local_shape(a.shape, specs[n], self.ctx)
+            rest = shape[:axis] + shape[axis + 1:]
             self._pools.append(torch.zeros(
                 (n_blocks, block_tokens) + tuple(rest), dtype=a.dtype,
                 device=self.device))
@@ -491,7 +507,9 @@ class PagedKVCache:
                                device=pool.device)
             full[: lead.shape[0]] = lead
             flat.append(full.movedim(0, axis).contiguous())
-        return _unflatten_cache(self._structure, flat)
+        out = _unflatten_cache(self._structure, flat)
+        return out if self.ctx is None else PAR.ShardedCache(out,
+                                                             self._spec_tree)
 
     # ------------------------------------------------------------------
     def _ids(self, blocks: List[int]) -> torch.Tensor:

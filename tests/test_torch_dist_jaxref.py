@@ -116,8 +116,79 @@ def train(inp):
             "params": jax.tree.map(np.asarray, params)}
 
 
+# the Mamba-2, RG-LRU, MLA and M-RoPE families' sharded engines, the
+# sharded paged engine, and whisper-base at the model level
+FAMILIES = ("mamba2-2.7b", "recurrentgemma-2b", "minicpm3-4b", "qwen2-vl-2b")
+PAGED = ("gemma-2b", "mamba2-2.7b")
+PAGED_NEW = 10
+WHISPER_ROWS, WHISPER_PROMPT, WHISPER_FRAMES, WHISPER_SLOTS = 4, 8, 24, 32
+
+
+def paged_prompts(block_tokens: int = 16):
+    """Three prompts; the second opens with the first one's two full
+    blocks (a prefix hit where the cache is all pages)."""
+    head = [(5 * j + 2) % 512 for j in range(2 * block_tokens)]
+    return [head + [9, 8, 7, 6, 5], head + [1, 2, 3], [4, 5, 6, 7, 8, 9]]
+
+
+def evict_resume(eng, prompts, new: int, steps: int = 3):
+    """Serve `prompts` on a paged engine, evicting the first request after
+    `steps` steps and resubmitting it once the others are admitted (it
+    resumes in another slot). Returns every request's tokens."""
+    reqs = [eng.submit(prompts[0], max_new_tokens=new)]
+    for _ in range(steps):
+        eng.step()
+    victim = eng.evict(reqs[0].slot)
+    assert victim is reqs[0] and victim.kv is not None
+    reqs += [eng.submit(p, max_new_tokens=new) for p in prompts[1:]]
+    eng.step()
+    eng.resubmit(victim)
+    eng.run_until_idle()
+    return [list(r.generated) for r in reqs]
+
+
+def families(inp):
+    """On the mesh: the greedy tokens of the families' engines and of the
+    paged engines (an eviction, a resume and a prefix hit), and whisper's
+    prefill and decode logits."""
+    from repro.serving.engine import ServingEngine
+    out = {"engine": {}, "paged": {}}
+    for arch in FAMILIES:
+        cfg = f32(arch)
+        params = init_params(jax.random.key(0), cfg)
+        _, ctx = mesh_ctx()
+        eng = ServingEngine(cfg, params, max_batch=4, max_seq=64, ctx=ctx)
+        reqs = [eng.submit(p, max_new_tokens=MAX_NEW) for p in PROMPTS]
+        eng.run_until_idle()
+        out["engine"][arch] = [list(r.generated) for r in reqs]
+    for arch in PAGED:
+        cfg = f32(arch)
+        params = init_params(jax.random.key(0), cfg)
+        _, ctx = mesh_ctx()
+        eng = ServingEngine(cfg, params, max_batch=4, max_seq=64, ctx=ctx,
+                            paged=True, kv_block_tokens=16)
+        toks = evict_resume(eng, paged_prompts(), PAGED_NEW)
+        out["paged"][arch] = (toks, eng.n_prefix_hits)
+    cfg = f32("whisper-base")
+    params = init_params(jax.random.key(0), cfg)
+    _, ctx = mesh_ctx()
+    toks = jnp.asarray(inp["whisper_tokens"])
+    s = WHISPER_PROMPT
+    cache = init_cache(cfg, WHISPER_ROWS, WHISPER_SLOTS)
+    last, cache = prefill(params, {"tokens": toks[:, :s], "audio_frames":
+                                   jnp.asarray(inp["whisper_frames"])},
+                          cache, cfg=cfg, ctx=ctx)
+    logits = [np.asarray(last)]
+    for i in range(toks.shape[1] - s):
+        lg, cache = decode_step(params, toks[:, s + i:s + i + 1], cache,
+                                jnp.int32(s + i), cfg=cfg, ctx=ctx)
+        logits.append(np.asarray(lg))
+    out["whisper"] = np.stack(logits)
+    return out
+
+
 CASES = {"cp_decode": cp_decode, "engine": engine, "ep_a2a": ep_a2a,
-         "train": train}
+         "train": train, "families": families}
 
 
 if __name__ == "__main__":

@@ -221,12 +221,13 @@ def test_shard_params_local_shapes_follow_specs(arch):
 
 
 @pytest.mark.parametrize("mesh_name", list(MESHES) + ["2x2"])
-@pytest.mark.parametrize("arch", [a for a in ASSIGNED_ARCHS if a not in (
-    "mamba2-2.7b", "minicpm3-4b")])
+@pytest.mark.parametrize("arch", [a for a in ASSIGNED_ARCHS
+                                  if a != "mamba2-2.7b"])
 def test_sharded_attention_fits_the_kernels(arch, mesh_name):
     """Every rank's q-heads a kv-head and head_dim, after sharding at full
     width, are ones the flash and decode kernels take (Mamba-2 has no
-    attention; MLA's layers run gathered, at the single-device shapes)."""
+    attention; an MLA layer runs flash on the rank's heads at head_dim
+    nope + rope)."""
     from repro_torch.models import tp
     shape, names = MESHES.get(mesh_name, ((2, 2), ("data", "model")))
     cfg = get_config(arch)
