@@ -25,8 +25,10 @@ fails:
    through `repro_torch.launch.serve`, with the kernels' launch counts
    read around the run; then reduced float32 gemma-2b, gemma3-12b (decoding
    past its rolling window), mamba2, deepseek-moe-16b, mixtral-8x7b (past
-   its rolling window) and minicpm3-4b engines on the card against the same
-   engines on the CPU (plain versions): the same greedy tokens;
+   its rolling window), minicpm3-4b, recurrentgemma-2b, qwen2-vl-2b and
+   the deployments' llama2-7b, llama3-8b, llama2-33b and gemma3-27b
+   engines on the card against the same engines on the CPU (plain
+   versions): the same greedy tokens;
 5. mamba2: full-width mamba2-2.7b (bf16) served through the launcher with
    prompts up to the 256 bucket, one SSD-diagonal launch per layer and
    prefill; then a reduced float32 paged mamba2 engine evicting and
@@ -105,7 +107,27 @@ fails:
    it prints the collectives by kind and bytes. Phase 3 also holds the
    decode kernel's logsumexp, the CP decode body (each shard's decode,
    then the combine) and every kernel at the ranks' shapes against their
-   plain versions.
+   plain versions;
+12. deployments / examples: the paper's deployment models (yi-6b,
+   llama2-7b, llama3-8b, yi-9b and the cloud's llama2-33b, 60.6 GiB of
+   weights) and the gemma3 pair (gemma3-12b, gemma3-27b) at full width
+   and depth, bf16, each served through the launcher's engine and freed
+   before the next, held to phase 8's checks (every request done inside
+   the vocabulary, flash once an attention layer a prefill, decode once an
+   attention layer a step, a finite probe logit), with tok/s cold and
+   warm, ms a step, host launches a traced decode step, the device's busy
+   share and peak memory beside the card's name and power limit; gemma3
+   with prompts of 600-1900 tokens into 2048 slots, past its 1024-slot
+   window (the windowed flash kernel at 2048, the rolling decode); a paged
+   gemma3-12b engine whose pool stalls admission, with an eviction resumed
+   across slot 1024 with the dense engine's tokens and the paged kernel
+   on its 8 global layers' pools; then the JAX package's last three
+   examples on the card: `repro_torch.examples.arch_zoo` over the 10
+   archs (each tour's launches counted), `quickstart` (train, serve,
+   schedule) and `train_100m` for 200 steps (the loss falls, its
+   checkpoint reads back bit for bit). Phase 3 also holds every kernel at
+   these engines' shapes and phase 4 the reduced float32 llama2-7b,
+   llama3-8b, llama2-33b and gemma3-27b engines, card against CPU.
 
 `python3 chip_smoke.py --step-launches SRC ARCH...` is a measurement, not
 the smoke: with `repro_torch` imported from SRC (a tree's `src`, so that two
@@ -114,7 +136,8 @@ full-width single-device ARCH engine (mixtral-8x7b cut to phase 8's 4
 layers) twice, cold then warm, under torch.profiler, and prints a JSON line
 an ARCH: the host's kernel launches divided by the traced decode steps.
 
-`--profile` also traces the warm engine runs of phases 4, 5, 8 and 9 and
+`--profile` also traces the warm engine runs of phases 4, 5, 8 and 9 (phase
+12 traces a few decode steps of each engine whether or not it is given) and
 one more full-width gemma-2b train step in phase 10 with torch.profiler
 (device time by kernel and the device's busy share of the wall time; for
 the train step also the device time of its gradient and AdamW halves).
@@ -172,7 +195,10 @@ PAGED_ARGS = SERVE_ARGS + ["--paged", "10"]
 
 
 def fail(msg: str) -> None:
+    """Stop the run. The reason goes to both streams: a caller that keeps
+    only the end of standard error still reads why."""
     print(f"chip_smoke: FAILED: {msg}", flush=True)
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -195,43 +221,67 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_us(fns, iters: int = 20) -> list:
-    """Device time a call, in µs, of each function in `fns`: one
-    torch.profiler trace over `iters` calls of each after a warm-up, each
-    function's loop inside a `record_function` range that ends after a
-    synchronise, and every kernel that starts inside the range summed. It
-    leaves out the host time the event-loop `ms` includes. One trace for all
-    the rows: many short traces in one process now and then come back
-    empty. A row whose kernels the trace does not hold fails the run."""
+def _traced_rows(fns, rows, iters: int) -> dict:
+    """One torch.profiler trace over `iters` calls of each function of
+    `rows` (indices into `fns`), each row's loop inside a `record_function`
+    range that ends after a synchronise. Returns each row's summed device
+    time, 0 where the trace holds none of its kernels: every kernel that
+    starts inside the row's range, or, where none does, the kernels the
+    trace ties to the range's launches (the range's `device_time_total`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
-    for fn in fns:
-        fn()
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for i, fn in enumerate(fns):
+        for i in rows:
             with record_function(f"chip_smoke_row_{i}"):
                 for _ in range(iters):
-                    fn()
+                    fns[i]()
                 torch.cuda.synchronize()
     events = prof.events()
     cuda = torch.autograd.DeviceType.CUDA
     # the CPU ranges; each also has a device-side span of the same name,
     # which is no kernel
-    ranges = {e.name: e.time_range for e in events
+    ranges = {e.name: e for e in events
               if e.name.startswith("chip_smoke_row_") and e.device_type != cuda}
     kernels = [e.time_range for e in events if e.device_type == cuda
                and not e.name.startswith("chip_smoke_row_")]
-    out = []
-    for i in range(len(fns)):
-        r = ranges.get(f"chip_smoke_row_{i}")
-        total = 0.0 if r is None else sum(
-            k.elapsed_us() for k in kernels if r.start <= k.start <= r.end)
-        if total <= 0:
-            fail(f"torch.profiler recorded no device time for row {i}")
-        out.append(total / iters)
+    out = {}
+    for i in rows:
+        e = ranges.get(f"chip_smoke_row_{i}")
+        if e is None:
+            out[i] = 0.0
+            continue
+        r = e.time_range
+        out[i] = sum(k.elapsed_us() for k in kernels
+                     if r.start <= k.start <= r.end) or e.device_time_total
     return out
+
+
+def device_us(fns, iters: int = 20, attempts: int = 3) -> list:
+    """Device time a call, in µs, of each function in `fns`, after a
+    warm-up: one trace for all the rows (`_traced_rows`). It leaves out the
+    host time the event-loop `ms` includes. A trace now and then comes back
+    without a row's kernels: those rows are traced again in a trace of
+    their own, up to `attempts` traces in all. A row whose kernels no trace holds fails the
+    run."""
+    import torch
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    totals = {}
+    todo = list(range(len(fns)))
+    for attempt in range(attempts):
+        got = _traced_rows(fns, todo, iters)
+        totals.update({i: t for i, t in got.items() if t > 0})
+        todo = [i for i in todo if i not in totals]
+        if not todo:
+            break
+        print(f"device_us: trace {attempt + 1} held no device time for rows "
+              f"{todo}", flush=True)
+    if todo:
+        fail(f"torch.profiler recorded no device time for rows {todo} in "
+             f"{attempts} traces")
+    return [totals[i] / iters for i in range(len(fns))]
 
 
 def bound_ms(n_bytes: float, n_ops: float, dtype: str):
@@ -755,6 +805,28 @@ FLASH_CASES = [
      "path: sharded recurrentgemma-2b, 5 on 1"),
     (1, 6, 1, 32, 32, 128, 0, 0, "bfloat16",
      "path: sharded qwen2-vl-2b, 6 on 1, bucket 32"),
+    # phase 12's deployments at full width: llama2-33b's 52 heads on 52
+    # (MHA), llama2-7b's 32 on 32, yi's 32 on 4 (8 a kv-head), llama3-8b's
+    # 32 on 8, all D 128, bucket 32; gemma3-12b's 16 on 8 at D 256 and
+    # gemma3-27b's 32 on 16 at D 128 in the 2048 bucket, local layers
+    # windowed to 1024 and global ones causal
+    (1, 52, 52, 32, 32, 128, 0, 0, "bfloat16",
+     "path: llama2-33b prefill, bucket 32"),
+    (1, 52, 52, 32, 32, 128, 0, 0, "float32", "llama2-33b heads, f32"),
+    (1, 32, 32, 32, 32, 128, 0, 0, "bfloat16",
+     "path: llama2-7b prefill, bucket 32"),
+    (1, 32, 4, 32, 32, 128, 0, 0, "bfloat16",
+     "path: yi-6b / yi-9b prefill, bucket 32"),
+    (1, 32, 8, 32, 32, 128, 0, 0, "bfloat16",
+     "path: llama3-8b prefill, bucket 32"),
+    (1, 16, 8, 2048, 2048, 256, 1024, 0, "bfloat16",
+     "path: gemma3-12b local prefill, bucket 2048"),
+    (1, 16, 8, 2048, 2048, 256, 0, 0, "bfloat16",
+     "path: gemma3-12b global prefill, bucket 2048"),
+    (1, 16, 8, 1024, 1024, 256, 1024, 0, "float32",
+     "gemma3-12b local, bucket 1024, f32"),
+    (1, 32, 16, 2048, 2048, 128, 1024, 0, "bfloat16",
+     "path: gemma3-27b local prefill, bucket 2048"),
 ]
 # whisper-base (8 q-heads on 8 kv-heads, D 64, 1500 frames): the encoder
 # and cross attention, bidirectional
@@ -824,6 +896,24 @@ DECODE_CASES = [
      "sharded recurrentgemma-2b, 5 on 1"),
     (6, 1, 256, 128, [20, 27, 33, 41], "bfloat16",
      "path: sharded qwen2-vl-2b decode, 6 on 1"),
+    # phase 12's deployments: the paper models' 256 slots; gemma3's local
+    # layers roll in 1024 slots (every row past the window reads all 1024),
+    # its global layers hold 2048
+    (52, 52, 256, 128, [20, 27, 33, 41], "bfloat16",
+     "path: llama2-33b decode"),
+    (52, 52, 256, 128, [20, 27, 33, 41], "float32", "llama2-33b heads, f32"),
+    (32, 32, 256, 128, [20, 27, 33, 41], "bfloat16", "path: llama2-7b decode"),
+    (32, 4, 256, 128, [20, 27, 33, 41], "bfloat16",
+     "path: yi-6b / yi-9b decode"),
+    (32, 8, 256, 128, [20, 27, 33, 41], "bfloat16", "path: llama3-8b decode"),
+    (16, 8, 1024, 256, [1024, 1024, 1024, 700], "bfloat16",
+     "path: gemma3-12b rolling local decode"),
+    (16, 8, 1024, 256, [1024, 1024, 1024, 700], "float32",
+     "gemma3-12b rolling local decode, f32"),
+    (16, 8, 2048, 256, [1500, 1100, 1916, 700], "bfloat16",
+     "path: gemma3-12b global decode"),
+    (32, 16, 1024, 128, [1024, 1024, 1024, 700], "bfloat16",
+     "path: gemma3-27b rolling local decode"),
 ]
 # the decode kernel writing each row's logsumexp (the context-parallel
 # decode's shard partial): phase 11's shard of gemma-2b's CP decode (2 rows,
@@ -876,6 +966,12 @@ PAGED_CASES = [
      "long: recurrentgemma-2b B=32 4096 tokens, f32"),
     (6, 1, 128, 16, 16, [40, 27, 0, 41], "bfloat16",
      "path: sharded qwen2-vl-2b pool, 6 on 1"),
+    # phase 12's paged gemma3-12b: its global layers' pools (16 q-heads on 8,
+    # D 256), 2048 tokens a table
+    (16, 8, 256, 16, 128, [1018, 1500, 0, 1916], "bfloat16",
+     "path: gemma3-12b global pool, page 16"),
+    (16, 8, 256, 16, 128, [1018, 1500, 0, 1916], "float32",
+     "gemma3-12b global pool, f32"),
 ]
 # (b, s, h, p, n, chunk, label): mamba2-2.7b's 80 heads of 64, state 128;
 # the engine's prompt buckets give chunk = min(256, bucket)
@@ -925,6 +1021,17 @@ SMALL_ENGINES = {
                           [5, 13, 29, 45], 16),
     "qwen2-vl-2b": (dict(n_layers=2, d_model=128, vocab_size=512), 64,
                     [3, 7, 11, 15, 19], 8),
+    # the deployments of phase 12: llama2 stays MHA reduced (4 on 4),
+    # llama3-8b keeps 4 q-heads a kv-head; gemma3-27b rolls past its 64-slot
+    # window as gemma3-12b does
+    "llama2-7b": (dict(n_layers=2, d_model=256, vocab_size=512), 64,
+                  [3, 7, 11, 15, 19], 8),
+    "llama3-8b": (dict(n_layers=2, d_model=256, vocab_size=512), 64,
+                  [3, 7, 11, 15, 19], 8),
+    "llama2-33b": (dict(n_layers=2, d_model=256, vocab_size=512), 64,
+                   [3, 7, 11, 15, 19], 8),
+    "gemma3-27b": (dict(n_layers=2, d_model=128, vocab_size=512), 128,
+                   [45, 52, 60, 70], 24),
 }
 # full-width MoE and MLA engines: (arch, launcher flags beyond SERVE_ARGS',
 # layers kept). mixtral-8x7b's 32 layers are 93 GB in bf16, beyond one card:
@@ -942,6 +1049,41 @@ NEW_ENGINES = [
     ("recurrentgemma-2b", ["--paged"], None),
     ("qwen2-vl-2b", [], None),
 ]
+# phase 12: the paper's deployment models (configs/paper_models.py: the
+# edge models yi-6b, llama2-7b, llama3-8b, yi-9b and the cloud's
+# llama2-33b, 60.6 GiB of bf16 weights, the largest one card holds) and the
+# gemma3 pair (the serving example's cloud engine, gemma3-12b, and the TPU
+# testbed's, gemma3-27b), each at full width and depth in bf16 through the
+# launcher's engine and freed before the next; no depth is cut. The paper
+# models serve SERVE_ARGS' requests. gemma3 takes prompts of 600-1900
+# tokens into 2048 slots (the launcher's seed gives 640-1790): those above
+# 1024 tokens fall in the 2048 bucket, whose last 1024 slots the local
+# layers' rolling cache keeps at prefill (the JAX engine's bucket padding,
+# ROADMAP §3), and decode in the rolling window (valid_len 1024); the rest
+# prefill the 1024 bucket whole. gemma3-12b runs again paged, with a pool
+# of DEPLOY_PAGED_BLOCKS blocks of 16 tokens (a request needs 41-113:
+# fewer than the 4 lanes fit, admission stalls); only its 8 global layers
+# are paged, its 40 local layers' 1024-slot windows go through the
+# snapshot. Each engine's warm run is followed by DEPLOY_TRACED_STEPS
+# decode steps under torch.profiler (host launches a step, busy share).
+GEMMA3_FLAGS = ["--max-seq", "2048", "--prompt-len", "600", "1900"]
+DEPLOY_PAGED_BLOCKS = 250
+DEPLOY_ENGINES = [
+    ("yi-6b", []),
+    ("llama2-7b", []),
+    ("llama3-8b", []),
+    ("yi-9b", []),
+    ("llama2-33b", []),
+    ("gemma3-12b", GEMMA3_FLAGS),
+    ("gemma3-12b", GEMMA3_FLAGS + ["--paged", str(DEPLOY_PAGED_BLOCKS)]),
+    ("gemma3-27b", GEMMA3_FLAGS),
+]
+DEPLOY_TRACED_STEPS = 4
+# the paged gemma3-12b engine's eviction: a prompt in the 1024 bucket,
+# evicted 8 steps in and resumed, rolls past slot 1024 after the resume
+DEPLOY_POOL_PROMPT = 1010
+# the three examples of phase 12: train_100m's steps on the card
+TRAIN_100M_STEPS = 200
 # phase 10: whisper-base's 4 requests (prompt lengths) and decode steps;
 # gemma-2b trained through the launcher; the families trained reduced
 WHISPER_PROMPTS = (4, 9, 16, 23)
@@ -1086,16 +1228,29 @@ def small_paged_run(arch: str, device: str):
             eng.n_prefills)
 
 
-def paged_pool_check(params, cfg, ctx=None):
-    """Full-width paged engine (bf16): a request evicted mid-decode. Right
-    after the eviction the paged kernel reads every attention layer's pool
-    through the request's page table; it is held against the plain version.
-    The resumed request must end with the uninterrupted dense engine's
-    tokens. Returns the worst errors and, per attention layer, the query,
-    the paged output and the slot's dense cache taken just before the
-    eviction, for `decode_yardstick`. Under a mesh (``ctx``) the engines
-    are sharded and the kernel reads this rank's pool: its kv-heads, with
-    the q-heads that read them."""
+def has_pool(kv, layer: int) -> bool:
+    """Whether the paged cache keeps `layer`'s K/V in pages (a rolling
+    window shorter than the engine's slots is snapshot whole instead)."""
+    try:
+        kv.pool_views(layer)
+    except ValueError:
+        return False
+    return True
+
+
+def paged_pool_check(params, cfg, ctx=None, max_seq: int = 256,
+                     prompt_len: int = 40):
+    """Full-width paged engine (bf16): a request of `prompt_len` tokens
+    evicted mid-decode. Right after the eviction the paged kernel reads
+    every paged attention layer's pool through the request's page table; it
+    is held against the plain version. Rolling windows shorter than
+    `max_seq` are not paged: their layers' K/V go through the snapshot
+    (counted in the readings). The resumed request must end with the
+    uninterrupted dense engine's tokens. Returns the worst errors and, per
+    paged layer, the query, the paged output and the slot's dense cache
+    taken just before the eviction, for `decode_yardstick`. Under a mesh
+    (``ctx``) the engines are sharded and the kernel reads this rank's
+    pool: its kv-heads, with the q-heads that read them."""
     import torch
     from repro_torch.kernels import ops, ref
     from repro_torch.models.transformer import block_program
@@ -1103,13 +1258,13 @@ def paged_pool_check(params, cfg, ctx=None):
     dev = torch.device(DEVICE)
     attn = [i for i, spec in enumerate(block_program(cfg).layers())
             if spec.kind == "attn"]
-    prompt = [(13 * j + 5) % cfg.vocab_size for j in range(40)]
-    dense = ServingEngine(cfg, params, max_batch=1, max_seq=256, device=dev,
-                          ctx=ctx)
+    prompt = [(13 * j + 5) % cfg.vocab_size for j in range(prompt_len)]
+    dense = ServingEngine(cfg, params, max_batch=1, max_seq=max_seq,
+                          device=dev, ctx=ctx)
     want = dense.submit(prompt, max_new_tokens=24)
     dense.run_until_idle()
-    eng = ServingEngine(cfg, params, max_batch=1, max_seq=256, device=dev,
-                        paged=True, kv_block_tokens=16, ctx=ctx)
+    eng = ServingEngine(cfg, params, max_batch=1, max_seq=max_seq,
+                        device=dev, paged=True, kv_block_tokens=16, ctx=ctx)
     req = eng.submit(prompt, max_new_tokens=24)
     for _ in range(8):
         eng.step()
@@ -1119,11 +1274,13 @@ def paged_pool_check(params, cfg, ctx=None):
     table = torch.tensor([req.pages.blocks], dtype=torch.int32, device=dev)
     gen = torch.Generator(device=dev).manual_seed(4)
     group, d = cfg.n_heads // cfg.n_kv_heads, cfg.resolved_head_dim
+    paged = [i for i in attn if has_pool(eng.kv, i)]
     worst = {"vs_plain": 0.0, "valid_len": pos,
-             "pages": len(req.pages.blocks), "layers": len(attn),
-             "group": group}
+             "pages": len(req.pages.blocks), "layers": len(paged),
+             "snapshot_layers": len(attn) - len(paged),
+             "snapshot_leaves": len(req.kv.state), "group": group}
     outs = []
-    for layer in attn:
+    for layer in paged:
         kp, vp = eng.kv.pool_views(layer)
         if kp.shape[-1] != d:
             fail(f"the pool splits head_dim ({kp.shape[-1]} of {d}): the "
@@ -1230,13 +1387,51 @@ def warm_engine_run(eng, prompts, profile: bool, new: int = 16) -> dict:
                 tok_per_s=toks / secs, ms_per_step=1e3 * secs / steps)
 
 
-def big_engine(arch, flags, n_layers, run_path, profile: bool, card: str):
-    """Phases 8 and 9: `arch` at full width (bf16, random weights from a
-    seed) served through the launcher's engine with SERVE_ARGS' 8 requests,
-    its depth cut to `n_layers` where given; checks the tokens, the
-    kernels' launch counts (flash once an attention layer a prefill, decode
-    once an attention layer a model decode step) and the logits, then
-    serves the same prompts warm. Returns the engine."""
+def traced_steps(eng, prompts, new: int, n: int) -> dict:
+    """Host kernel launches a decode step and the device's busy share: the
+    prompts once more on the warm engine, two engine steps to admit and
+    prefill what fits, then `n` decode steps traced with torch.profiler
+    (no request can finish, and so none is admitted, inside them: `new`
+    exceeds n + 2), the rest drained untraced. The profiler slows the host,
+    so the busy share is a lower bound."""
+    import torch
+    for p in prompts:
+        eng.submit(p, max_new_tokens=new)
+    for _ in range(2):
+        eng.step()
+    prefills = eng.n_prefills
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            eng.step()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    if eng.n_prefills != prefills:
+        fail("a prefill ran inside the traced decode steps")
+    eng.run_until_idle()
+    avg = prof.key_averages()
+    cuda = torch.autograd.DeviceType.CUDA
+    launches = sum(e.count for e in avg
+                   if e.key in ("cudaLaunchKernel", "cuLaunchKernelEx"))
+    busy = sum(e.self_device_time_total for e in avg
+               if e.device_type == cuda) / 1e6
+    return dict(launches_per_step=launches / n, busy_share=busy / secs,
+                traced_ms_per_step=1e3 * secs / n)
+
+
+def big_engine(arch, flags, n_layers, run_path, profile: bool, card: str,
+               trace_steps: int = 0):
+    """Phases 8, 9 and 12: `arch` at full width (bf16, random weights from
+    a seed) served through the launcher's engine with SERVE_ARGS' 8
+    requests (`flags` added after them), its depth cut to `n_layers` where
+    given; checks the tokens, the kernels' launch counts (flash once an
+    attention layer a prefill, decode once an attention layer a model
+    decode step) and the logits, then serves the same prompts warm, and
+    with `trace_steps` once more for that many traced decode steps
+    (`traced_steps`). Returns the engine and its readings."""
     import dataclasses
     import torch
     from repro_torch.configs import get_config
@@ -1278,17 +1473,32 @@ def big_engine(arch, flags, n_layers, run_path, profile: bool, card: str):
             or not bool(torch.isfinite(logits).all()):
         fail(f"{label}: logits are not finite or of the wrong shape")
     del logits
-    warm = warm_engine_run(eng, [r.prompt for r in done], profile)
+    prompts = [r.prompt for r in done]
+    warm = warm_engine_run(eng, prompts, profile)
+    readings = dict(arch=arch, flags=flags, requests=n_done, tokens=toks,
+                    cold_s=secs, cold_tok_per_s=toks / secs,
+                    warm_s=warm["seconds"], warm_tok_per_s=warm["tok_per_s"],
+                    warm_steps=warm["steps"],
+                    ms_per_step=warm["ms_per_step"], prefills=prefills,
+                    decode_steps=steps, flash=flash, decode=dec,
+                    generated=sorted_tokens(done[:n_done]))
+    traced = ""
+    if trace_steps:
+        readings.update(traced_steps(eng, prompts, 16, trace_steps))
+        traced = (f", {readings['launches_per_step']:.0f} host launches a "
+                  f"traced decode step ({readings['traced_ms_per_step']:.2f}"
+                  f" ms, device {100 * readings['busy_share']:.1f}% busy)")
+    readings["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     cut = (f", n_layers cut to {layers} of {get_config(arch).n_layers} "
            f"(dataclasses.replace)" if n_layers is not None else "")
     print(f"{label} engine (bf16, full width{cut}): {n_done} requests, "
           f"{toks} tokens, cold {secs:.2f} s ({toks / secs:.1f} tok/s), "
           f"warm {warm['seconds']:.3f} s ({warm['tok_per_s']:.1f} tok/s, "
-          f"{warm['steps']} steps, {warm['ms_per_step']:.2f} ms/step) on "
-          f"{card}; flash {flash} = {prefills} prefills x {n_attn} "
+          f"{warm['steps']} steps, {warm['ms_per_step']:.2f} ms/step){traced}"
+          f" on {card}; flash {flash} = {prefills} prefills x {n_attn} "
           f"attention layers (of {layers}), {dec_note}; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB", flush=True)
-    return eng
+          f"{readings['peak_gib']:.1f} GiB", flush=True)
+    return eng, readings
 
 
 def whisper_tokens(params, cfg, frames, steps: int):
@@ -2265,6 +2475,198 @@ def run_sharded(paths, card: str, dev) -> None:
                  f"{refs['small'][arch]}")
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the deployment models at full width, then the examples
+# ---------------------------------------------------------------------------
+
+
+def run_deployments(run_path, paths, card: str) -> list:
+    """Phase 12's engines (DEPLOY_ENGINES), each built, checked and freed
+    before the next; on the paged gemma3-12b engine, an eviction and resume
+    against the dense engine and the paged kernel on its global layers'
+    pools. Returns each engine's readings."""
+    import torch
+
+    def run_path_out(name, fn):
+        out = run_path(name, fn)
+        return paths[name], out
+
+    # the profiler's first use in a process pays its start-up: spend
+    # it here, not in the first engine's traced steps
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]):
+        torch.ones(1, device=DEVICE).add_(1)
+        torch.cuda.synchronize()
+    out = []
+    for arch, flags in DEPLOY_ENGINES:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        eng, readings = big_engine(arch, flags, None, run_path_out, False,
+                                   card, trace_steps=DEPLOY_TRACED_STEPS)
+        cfg, label = eng.cfg, " ".join([arch] + flags)
+        if cfg.sliding_window:
+            lengths = [len(r.prompt) for r in eng.completed[:8]]
+            w = cfg.sliding_window
+            if min(lengths) > w or max(lengths) <= w:
+                fail(f"{label}: prompts {lengths} do not fall on both sides "
+                     f"of the {w}-slot window")
+        if eng.paged:
+            readings.update(paged_deployment(eng, run_path, paths, out))
+        out.append(readings)
+        del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def paged_deployment(eng, run_path, paths, earlier) -> dict:
+    """The paged gemma3-12b engine of phase 12: admission stalled, every
+    block returned, no prefix index (its rolling windows are snapshot),
+    the launcher's tokens beside the dense engine's (printed); then
+    `paged_pool_check` at the engine's 2048 slots with a
+    DEPLOY_POOL_PROMPT-token prompt,
+    whose resume crosses slot 1024, and the paged kernel on the 8 global
+    layers' pools against the decode kernel on the dense slot."""
+    cfg, arch = eng.cfg, eng.cfg.arch_id
+    if eng.n_kv_stalls < 1:
+        fail(f"paged {arch}: the pool never stalled admission")
+    if eng.kv.free_blocks != eng.kv.n_blocks:
+        fail(f"paged {arch}: the engine did not return every block")
+    if eng.kv.supports_prefix:
+        fail(f"paged {arch}: a model with rolling windows keeps a prefix "
+             f"index")
+    dense = next((r for r in earlier if r["arch"] == arch
+                  and "--paged" not in r["flags"]), None)
+    same = dense is not None and dense["generated"] == \
+        sorted_tokens(eng.completed[:8])
+    label = f"paged pool {arch}"
+    rows, outs = run_path(label, lambda: paged_pool_check(
+        eng.params, cfg, max_seq=eng.max_seq, prompt_len=DEPLOY_POOL_PROMPT))
+    n_attn = cfg.attention_layer_count()
+    n_global = n_attn // sum(cfg.local_global_pattern)
+    if rows["layers"] != n_global or paths[label]["paged_attention"] \
+            != n_global or rows["snapshot_layers"] != n_attn - n_global \
+            or rows["snapshot_leaves"] != 2 * (n_attn - n_global):
+        fail(f"{label}: the paged kernel ran on {rows['layers']} pools "
+             f"({paths[label]['paged_attention']} launches), "
+             f"{rows['snapshot_layers']} layers snapshot; expected "
+             f"{n_global} global layers paged")
+    if not rows["valid_len"] < cfg.sliding_window < DEPLOY_POOL_PROMPT + 24:
+        fail(f"{label}: the resumed request does not cross the window")
+    decode_yardstick(rows, outs)
+    del outs
+    print(f"paged {arch}: {eng.n_kv_stalls} admission stalls, "
+          f"{eng.kv.n_blocks} blocks; launcher tokens "
+          f"{'=' if same else '!='} the dense engine's; evicted at position "
+          f"{rows['valid_len']} and resumed past slot {cfg.sliding_window} "
+          f"with the dense engine's tokens; paged kernel on the live pools "
+          f"{rows}", flush=True)
+    return dict(kv_stalls=eng.n_kv_stalls, kv_blocks=eng.kv.n_blocks,
+                launcher_tokens_as_dense=same, pool=rows)
+
+
+def sorted_tokens(done) -> list:
+    return [r.generated for r in sorted(done, key=lambda r: r.rid)]
+
+
+def zoo_launches(cfg) -> dict:
+    """The kernels one arch_zoo tour launches: one prefill of the batch,
+    one decode step. Flash once an attention layer a prefill (whisper: its
+    encoder, self and cross layers, and its cross layers again at decode),
+    decode once an attention layer a step (MLA decodes by matrix products),
+    ssd_diag once a Mamba-2 layer a prefill."""
+    from repro_torch.models.transformer import block_program
+    n_attn = cfg.attention_layer_count()
+    n_ssm = sum(spec.kind == "ssm" for spec in block_program(cfg).layers())
+    flash = n_attn
+    if cfg.enc_dec:
+        flash = cfg.n_encoder_layers + 3 * cfg.n_layers
+    return {"flash_attention": flash,
+            "decode_attention": 0 if cfg.mla is not None else n_attn,
+            "paged_attention": 0, "ssd_diag": n_ssm}
+
+
+def run_examples(run_path, paths, card: str) -> dict:
+    """Phase 12's examples on the card: arch_zoo's tour of all 10 archs,
+    quickstart's train / serve / schedule, and train_100m for
+    TRAIN_100M_STEPS steps with its checkpoint read back."""
+    import tempfile
+    import torch
+    from repro_torch.configs import ASSIGNED_ARCHS, get_config
+    from repro_torch.examples import arch_zoo, quickstart, train_100m
+    from repro_torch.training import load_checkpoint
+    from repro_torch.training.optimizer import leaves
+
+    for arch in ASSIGNED_ARCHS:
+        label = f"arch_zoo {arch}"
+        res = run_path(label, lambda arch=arch: arch_zoo.main(
+            ["--arch", arch]))[arch]
+        cfg = get_config(arch).reduced()
+        got = {k: v for k, v in paths[label].items() if k in (
+            "flash_attention", "decode_attention", "paged_attention",
+            "ssd_diag")}
+        if got != zoo_launches(cfg):
+            fail(f"{label}: launches {got}, expected {zoo_launches(cfg)}")
+        if res["logits"].shape != (2, cfg.vocab_size) \
+                or not bool(torch.isfinite(res["logits"]).all()):
+            fail(f"{label}: decode logits not finite or of the wrong shape")
+    print(f"arch_zoo: {len(ASSIGNED_ARCHS)} archs toured on {card}; "
+          f"launches {[paths[f'arch_zoo {a}'] for a in ASSIGNED_ARCHS]}",
+          flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    q = run_path("quickstart", lambda: quickstart.main([]))
+    q_losses = [h["loss"] for h in q["history"]]
+    n_layers = q["engine"].cfg.n_layers
+    ql = paths["quickstart"]
+    if not all(map(math.isfinite, q_losses)) or q_losses[-1] >= q_losses[0]:
+        fail(f"quickstart: losses {q_losses}")
+    if [len(r.generated) for r in q["requests"]] != [8] * 6 \
+            or len(q["schedule"]) != 2:
+        fail("quickstart: not every request served or schedule row printed")
+    if ql["flash_attention"] != (30 + 6) * n_layers \
+            or ql["decode_attention"] != q["engine"].n_decode_steps * n_layers:
+        fail(f"quickstart: launches {ql}, expected flash (30 steps + 6 "
+             f"prefills) x {n_layers}")
+    print(f"quickstart on {card}: loss {q_losses[0]:.3f} -> "
+          f"{q_losses[-1]:.3f}, "
+          f"6 requests served, schedule {q['schedule']}; launches {ql}",
+          flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as ckpt:
+        t = run_path("train_100m", lambda: train_100m.main(
+            ["--steps", str(TRAIN_100M_STEPS), "--ckpt", ckpt]))
+        cfg, hist = t["cfg"], t["history"]
+        back, extra = load_checkpoint(ckpt, t["params"], cfg,
+                                      device=DEVICE)
+    losses = [h["loss"] for h in hist]
+    if not all(map(math.isfinite, losses)) or losses[-1] >= losses[0]:
+        fail(f"train_100m: losses {losses}")
+    if extra != {"steps": TRAIN_100M_STEPS, "arch": cfg.arch_id} or not all(
+            torch.equal(a, b) for a, b in zip(
+                leaves(back), leaves(t["params"]), strict=True)):
+        fail("train_100m: the checkpoint does not read back to the weights")
+    tl = paths["train_100m"]
+    if tl["flash_attention"] != TRAIN_100M_STEPS * cfg.n_layers:
+        fail(f"train_100m: flash {tl['flash_attention']}, expected "
+             f"{TRAIN_100M_STEPS} x {cfg.n_layers}")
+    batch, seq = t["batch"], t["seq"]
+    step_s = (hist[-1]["elapsed_s"] - hist[0]["elapsed_s"]) \
+        / (hist[-1]["step"] - hist[0]["step"])
+    print(f"train_100m on {card}: {cfg.param_count() / 1e6:.0f}M params, "
+          f"{TRAIN_100M_STEPS} steps of {batch} x {seq} tokens, loss "
+          f"{losses[0]:.3f} -> {losses[-1]:.3f}; {1e3 * step_s:.1f} ms a "
+          f"step after step 0, {batch * seq / step_s:.0f} tokens/s, "
+          f"{t['seconds']:.1f} s in all; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB; "
+          f"checkpoint read back bit for bit; flash {tl['flash_attention']}",
+          flush=True)
+    return dict(train_100m_loss=(losses[0], losses[-1]),
+                train_100m_tok_per_s=batch * seq / step_s,
+                quickstart_loss=(q_losses[0], q_losses[-1]))
+
+
 def step_launches(src: str, archs) -> None:
     """Host kernel launches a step of warm single-device engines (see the
     module's docstring)."""
@@ -2382,6 +2784,10 @@ def main(argv=None) -> None:
         r["device_us"] = us
     for (r, _), us in zip(yard, times[len(rows):], strict=True):
         r["dense_decode_us"] = us
+    # the timed closures hold every case's inputs: free them, so that the
+    # engines' peak memory below is their own
+    del fns, yard
+    torch.cuda.empty_cache()
     for r in rows:
         lib_ms = ("none" if r["library_ms"] is None
                   else f"{r['library_ms']:.4f}")
@@ -2602,8 +3008,8 @@ def main(argv=None) -> None:
         torch.cuda.reset_peak_memory_stats()
         # the paged minicpm3 run is not traced: its trace repeats the dense
         # one's, and a 62-layer trace takes minutes to read
-        eng = big_engine(arch, flags, n_layers, run_path_out,
-                         profile and not flags, name)
+        eng, _ = big_engine(arch, flags, n_layers, run_path_out,
+                            profile and not flags, name)
         if eng.paged:
             heng = run_path(f"paged prefix {arch}",
                             lambda: full_prefix_hit(eng.params, eng.cfg))
@@ -2622,8 +3028,8 @@ def main(argv=None) -> None:
     # 10 q-heads a kv-head
     for arch, flags, n_layers in NEW_ENGINES:
         torch.cuda.reset_peak_memory_stats()
-        eng = big_engine(arch, flags, n_layers, run_path_out,
-                         profile and not flags, name)
+        eng, _ = big_engine(arch, flags, n_layers, run_path_out,
+                            profile and not flags, name)
         if eng.paged:
             if eng.kv.supports_prefix:
                 fail(f"the paged {arch} engine keeps a prefix index")
@@ -2647,6 +3053,15 @@ def main(argv=None) -> None:
     # 11. the sharded paths: 4 ranks on the one card
     torch.cuda.empty_cache()
     run_sharded(paths, name, dev)
+
+    # 12. the deployment models at full width, then the three examples
+    t12 = time.time()
+    deployed = run_deployments(run_path, paths, card_line)
+    examples = run_examples(run_path, paths, card_line)
+    print("deployments " + json.dumps({
+        "card": card_line, "seconds": time.time() - t12,
+        "engines": [{k: v for k, v in r.items() if k != "generated"}
+                    for r in deployed], "examples": examples}), flush=True)
 
     # result
     path_rows = {}
