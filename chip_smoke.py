@@ -104,7 +104,10 @@ fails:
    model level; reduced float32 engines of gemma-2b, deepseek (constraint
    form) and the four families against one CPU process. bf16 logits are
    held to the float32 model (no further than 1.25x one rank's bf16 run);
-   it prints the collectives by kind and bytes. Phase 3 also holds the
+   it prints the collectives by kind and bytes, and fails if gemma-2b's
+   train step or CP path's prefill all-gathers float32 logits over every
+   position (the vocabulary-parallel head and cross-entropy gather the
+   returned rows alone). Phase 3 also holds the
    decode kernel's logsumexp, the CP decode body (each shard's decode,
    then the combine) and every kernel at the ranks' shapes against their
    plain versions;
@@ -135,6 +138,11 @@ trees compare in one call), it serves the launcher's 8 requests on each
 full-width single-device ARCH engine (mixtral-8x7b cut to phase 8's 4
 layers) twice, cold then warm, under torch.profiler, and prints a JSON line
 an ARCH: the host's kernel launches divided by the traced decode steps.
+`python3 chip_smoke.py --deploy-tokens SRC [ARCH...]` serves phase 12's
+deployment engines (those of the ARCHs given, else all) from SRC's
+`repro_torch`, cold and warm as phase 12 does, and prints a JSON line an
+engine: its peak memory and a digest of its greedy tokens, so that two
+trees' tokens and peaks compare in one call.
 
 `--profile` also traces the warm engine runs of phases 4, 5, 8 and 9 (phase
 12 traces a few decode steps of each engine whether or not it is given) and
@@ -2012,6 +2020,15 @@ def _rank_main(rank, world, port, args_path, out_path):
     ctx = PAR.ParallelContext(mesh=mesh)
     res = {"paths": {}, "peak_gib": {}, "stages": {}}
     t_stage = [time.perf_counter()]
+    # the largest float32 all-gather of a path, in elements (a bf16
+    # model's logits are its large float32 tensors)
+    f32_gather, count = [0], PAR._count
+
+    def counted(kind, out):
+        if kind == "all-gather" and out.dtype == torch.float32:
+            f32_gather[0] = max(f32_gather[0], out.numel())
+        count(kind, out)
+    PAR._count = counted
 
     def stage(name):
         now = time.perf_counter()
@@ -2023,6 +2040,7 @@ def _rank_main(rank, world, port, args_path, out_path):
         """Counts to 0 just before the run, read just after."""
         ops.reset_launches()
         PAR.reset_collectives()
+        f32_gather[0] = 0
         if on_card:
             torch.cuda.reset_peak_memory_stats()
         dist.barrier()
@@ -2033,7 +2051,7 @@ def _rank_main(rank, world, port, args_path, out_path):
         dist.barrier()
         res["paths"][label] = dict(
             launches=ops.kernel_launches(), seconds=time.perf_counter() - t0,
-            collectives=PAR.collective_counts())
+            collectives=PAR.collective_counts(), f32_gather=f32_gather[0])
         res["peak_gib"][label] = (torch.cuda.max_memory_allocated() / 2 ** 30
                                   if on_card else 0.0)
         return out
@@ -2298,6 +2316,29 @@ def shard_close(label, shard, single, f32) -> bool:
     return good
 
 
+def head_gathers(res) -> None:
+    """The vocabulary-parallel head on the card: gemma-2b's sharded train
+    step (its loss all-reduces each row's max, sum and gold logit) gathers
+    no float32 logits, and the CP path's prefill and decode gather one row
+    a sequence, not every position's; each path's all-gather bytes and
+    peak a rank are printed."""
+    vocab = _cfg("gemma-2b").vocab_size
+    rows = [_train_batch(vocab)["tokens"].shape, (CP_ROWS, CP_PROMPT)]
+    for (b, s), label in zip(rows, ("11 gemma-2b sharded train step",
+                                    "11 gemma-2b CP decode"), strict=True):
+        p = res["paths"][label]
+        ag = p["collectives"]["all-gather"]
+        most = p["f32_gather"] // vocab
+        peaks = [f"{r[label]:.2f}" for r in res["peak_gib_by_rank"]]
+        print(f"sharded head, {label[3:]}: all-gather {ag['calls']} calls, "
+              f"{ag['bytes'] / 2 ** 30:.4f} GiB; float32 rows of logits "
+              f"gathered at most {most} at once ({b} sequences, a head "
+              f"over every position {b // SHARD_MESH[0] * s}); peak GiB by "
+              f"rank {peaks}", flush=True)
+        if most > b:
+            fail(f"{label} gathers float32 logits over every position")
+
+
 def run_sharded(paths, card: str, dev) -> None:
     """Phase 11 (see the module's docstring)."""
     import socket
@@ -2465,6 +2506,7 @@ def run_sharded(paths, card: str, dev) -> None:
             fail(f"the sharded train step's {k} is off the single rank's")
     if all(fault[k] <= gate for k, gate in SHARD_TRAIN_GATES.items()):
         fail("the train step's gates pass a step on half the batch")
+    head_gathers(res)
     for arch in SHARD_SMALL:
         same = res["small"][arch] == refs["small"][arch]
         print(f"reduced f32 {arch} engine, {world} ranks on the card vs one "
@@ -2711,8 +2753,48 @@ def step_launches(src: str, archs) -> None:
         torch.cuda.empty_cache()
 
 
+def deploy_tokens(src: str, archs) -> None:
+    """Phase 12's engines from SRC's `repro_torch`: peak GiB and a digest
+    of the greedy tokens an engine (see the module's docstring)."""
+    import hashlib
+    sys.path.insert(0, str(Path(src).resolve()))
+    import torch
+    from repro_torch.kernels import _build, ops
+    _build.build()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+
+    def run_path(name, fn):
+        ops.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        return ops.kernel_launches(), out
+
+    for arch, flags in DEPLOY_ENGINES:
+        if archs and arch not in archs:
+            continue
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        eng, r = big_engine(arch, flags, None, run_path, False, card)
+        digest = hashlib.sha1(json.dumps(r["generated"]).encode())
+        print(json.dumps({"arch": arch, "flags": flags, "card": card,
+                          "peak_gib": torch.cuda.max_memory_allocated()
+                          / 2 ** 30, "tokens_sha1": digest.hexdigest(),
+                          "warm_tok_per_s": r["warm_tok_per_s"]}),
+              flush=True)
+        del eng
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> None:
     argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--deploy-tokens"]:
+        if len(argv) < 2:
+            fail("usage: chip_smoke.py --deploy-tokens SRC [ARCH...]")
+        deploy_tokens(argv[1], argv[2:])
+        return
     if argv[:1] == ["--step-launches"]:
         if len(argv) < 3:
             fail("usage: chip_smoke.py --step-launches SRC ARCH...")

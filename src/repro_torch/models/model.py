@@ -174,19 +174,26 @@ def _global_rows(x, b: int, ctx, dim: int = 0):
     return x
 
 
-def _forward_local(params, batch, *, cfg, mode, cache, pos, ctx):
-    """`forward` under a mesh, on this rank's rows: (local logits,
-    cache')."""
-    b = batch["tokens"].shape[0]
-    local = _local_batch(batch, ctx)
-    enc_out = encode(params, local, cfg, mode, ctx)
-    x = embed_inputs(params, local, cfg, ctx)
-    x, new_cache, _ = T.run_stack(
-        params["layers"], x, cfg=cfg, mode=mode, cache=cache,
-        pos=_local_pos(pos, b, ctx), positions=local.get("positions"),
-        enc_out=enc_out, ctx=ctx)
-    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return lm_head(params, x, cfg, ctx), new_cache
+def hidden_states(params, batch, *, cfg: ModelConfig, mode: str = "train",
+                  cache=None, pos=None, moe_dispatch: str = "dense",
+                  remat: bool = False, ctx=None):
+    """`forward` without its head: (the final normed hidden states (B, S,
+    D), cache', aux), so that a caller runs the head on the rows it wants;
+    aux is `transformer.run_stack`'s (the MoE load-balance loss). Under a
+    mesh (``ctx``) the batch is global and the states are this rank's rows
+    (B_local, S, D)."""
+    if PAR.is_sharded(ctx):
+        b = batch["tokens"].shape[0]
+        batch, pos = _local_batch(batch, ctx), _local_pos(pos, b, ctx)
+    else:
+        moe_dispatch, ctx = _dispatch(ctx, moe_dispatch), None
+    enc_out = encode(params, batch, cfg, mode, ctx)
+    x = embed_inputs(params, batch, cfg, ctx)
+    x, new_cache, aux = T.run_stack(
+        params["layers"], x, cfg=cfg, mode=mode, cache=cache, pos=pos,
+        positions=batch.get("positions"), moe_dispatch=moe_dispatch,
+        enc_out=enc_out, remat=remat, ctx=ctx)
+    return L.rmsnorm(params["final_norm"], x, cfg.norm_eps), new_cache, aux
 
 
 def forward(params, batch, *, cfg: ModelConfig, mode: str = "train",
@@ -205,19 +212,11 @@ def forward(params, batch, *, cfg: ModelConfig, mode: str = "train",
     Under a mesh (``ctx``) the parameters and cache are this rank's shards
     and the batch is global: each rank runs its rows and the logits of
     every row are gathered."""
-    if PAR.is_sharded(ctx):
-        logits, new_cache = _forward_local(params, batch, cfg=cfg, mode=mode,
-                                           cache=cache, pos=pos, ctx=ctx)
-        return _global_rows(logits, batch["tokens"].shape[0], ctx), new_cache
-    moe_dispatch = _dispatch(ctx, moe_dispatch)
-    enc_out = encode(params, batch, cfg, mode)
-    x = embed_inputs(params, batch, cfg)
-    x, new_cache, _ = T.run_stack(params["layers"], x, cfg=cfg, mode=mode,
-                                  cache=cache, pos=pos,
-                                  positions=batch.get("positions"),
-                                  moe_dispatch=moe_dispatch, enc_out=enc_out)
-    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return lm_head(params, x, cfg), new_cache
+    x, new_cache, _ = hidden_states(params, batch, cfg=cfg, mode=mode,
+                                    cache=cache, pos=pos,
+                                    moe_dispatch=moe_dispatch, ctx=ctx)
+    logits = lm_head(params, x, cfg, ctx)
+    return _global_rows(logits, batch["tokens"].shape[0], ctx), new_cache
 
 
 CE_CHUNK = 512
@@ -228,13 +227,19 @@ def ce_from_hidden(params, x, labels, cfg: ModelConfig, ctx=None):
     sequence chunk of ``min(CE_CHUNK, S)`` at a time (one chunk when that
     does not divide S), each under `torch.utils.checkpoint`, so no chunk's
     (B, c, V) float32 logits live on into the backward. Labels below 0 are
-    masked. Returns (summed nll, count), float32."""
+    masked. Under a mesh whose model axis splits the head's vocabulary each
+    chunk is `tp.vocab_parallel_ce`: no logits cross the ranks. Returns
+    (summed nll, count), float32."""
     s = x.shape[1]
     chunk = min(CE_CHUNK, s)
     if s % chunk:
         chunk = s
+    w = params["embed"] if cfg.tie_embeddings else params["unembed"]
 
     def piece(xc, lc):
+        if PAR.is_sharded(ctx) and w.shape[0] != cfg.vocab_size:
+            from repro_torch.models import tp as TP
+            return TP.vocab_parallel_ce(w, xc, lc, cfg, ctx)
         logits = lm_head(params, xc, cfg, ctx)
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1,
@@ -262,32 +267,14 @@ def loss_fn(params, batch, *, cfg: ModelConfig, aux_weight: float = 0.01,
     batch's on every rank. Returns (total, {"loss", "moe_aux_loss"})."""
     if ctx is not None:
         moe_dispatch, remat = ctx.moe_dispatch, ctx.remat
+    x, _, aux = hidden_states(params, batch, cfg=cfg, mode="train",
+                              moe_dispatch=moe_dispatch, remat=remat,
+                              ctx=ctx)
+    labels, b = batch["labels"], batch["tokens"].shape[0]
     if PAR.is_sharded(ctx):
-        return _loss_sharded(params, batch, cfg=cfg, aux_weight=aux_weight,
-                             remat=remat, ctx=ctx)
-    enc_out = encode(params, batch, cfg)
-    x = embed_inputs(params, batch, cfg)
-    x, _, aux = T.run_stack(params["layers"], x, cfg=cfg, mode="train",
-                            positions=batch.get("positions"),
-                            moe_dispatch=moe_dispatch, enc_out=enc_out,
-                            remat=remat)
-    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    nll, cnt = ce_from_hidden(params, x, batch["labels"], cfg)
-    loss = nll / torch.clamp(cnt, min=1.0)
-    total = loss + aux_weight * aux["moe_aux_loss"]
-    return total, {"loss": loss, "moe_aux_loss": aux["moe_aux_loss"]}
-
-
-def _loss_sharded(params, batch, *, cfg, aux_weight, remat, ctx):
-    local = _local_batch(batch, ctx)
-    enc_out = encode(params, local, cfg, ctx=ctx)
-    x = embed_inputs(params, local, cfg, ctx)
-    x, _, aux = T.run_stack(params["layers"], x, cfg=cfg, mode="train",
-                            positions=local.get("positions"),
-                            enc_out=enc_out, remat=remat, ctx=ctx)
-    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    nll, cnt = ce_from_hidden(params, x, local["labels"], cfg, ctx)
-    if ctx.batch_sharded(batch["tokens"].shape[0]):
+        labels = ctx.shard_batch(labels)
+    nll, cnt = ce_from_hidden(params, x, labels, cfg, ctx)
+    if PAR.is_sharded(ctx) and ctx.batch_sharded(b):
         both = PAR.all_reduce(torch.stack([nll, cnt]), ctx, ctx.batch_spec)
         nll, cnt = both[0], both[1]
     loss = nll / torch.clamp(cnt, min=1.0)
@@ -347,19 +334,27 @@ def input_specs(cfg: ModelConfig, shape, dtype=torch.bfloat16):
     return out
 
 
-def prefill(params, batch, cache, *, cfg: ModelConfig, ctx=None):
-    """Run the prompt through the stack and fill the cache.
+def prefill(params, batch, cache, *, cfg: ModelConfig, last=-1,
+            moe_dispatch: str = "dense", ctx=None):
+    """Run the prompt through the stack and fill the cache; the head runs
+    on row ``last`` alone: an int, or a (B,) index tensor, one position a
+    row (the engine's bucket prefill passes the prompt's last token, as
+    the JAX engine's ``_prefill_cache(p, batch, c, last)`` does).
 
-    Returns (last_token_logits (B, V), cache')."""
-    if PAR.is_sharded(ctx):
-        logits, new_cache = _forward_local(params, batch, cfg=cfg,
-                                           mode="prefill", cache=cache,
-                                           pos=None, ctx=ctx)
-        return _global_rows(logits[:, -1], batch["tokens"].shape[0],
-                            ctx), new_cache
-    logits, new_cache = forward(params, batch, cfg=cfg, mode="prefill",
-                                cache=cache, ctx=ctx)
-    return logits[:, -1], new_cache
+    Returns (logits of row `last` (B, V) float32, cache'). Under a mesh
+    each rank runs the head on its own rows, gathers their vocabulary and
+    then the rows."""
+    x, new_cache, _ = hidden_states(params, batch, cfg=cfg, mode="prefill",
+                                    cache=cache, moe_dispatch=moe_dispatch,
+                                    ctx=ctx)
+    b = batch["tokens"].shape[0]
+    if isinstance(last, torch.Tensor) and last.ndim:
+        last = last.to(x.device).long()
+        if PAR.is_sharded(ctx):
+            last = _local_pos(last, b, ctx)
+    x = x[torch.arange(x.shape[0], device=x.device), last]
+    logits = lm_head(params, x[:, None], cfg, ctx)[:, 0]
+    return _global_rows(logits, b, ctx), new_cache
 
 
 def decode_step(params, tokens, cache, pos, *, cfg: ModelConfig,

@@ -18,7 +18,9 @@ for the JAX package, through the counted helpers of `models/parallel.py`:
 * the MLP and the dense and capacity MoE dispatches: column-parallel
   products on the rank's hidden columns, an all-reduce after.
 * the vocabulary-parallel embedding (a masked local gather and an
-  all-reduce) and head (local logits, gathered over the vocabulary).
+  all-reduce), head (local logits, gathered over the vocabulary for the
+  rows a caller returns) and cross-entropy (each row's max, sum of
+  exponentials and gold logit all-reduced; no logits gathered).
 * the Mamba-2, RG-LRU and MLA mixers on the rank's heads or channels
   (`mixer_layer`): column-parallel input projections, the SSD (with the
   ssd_diag kernel), the doubling scan and MLA's flash prefill on the local
@@ -98,12 +100,44 @@ def embed_lookup(w, tokens, cfg: ModelConfig, ctx: ParallelContext):
 
 def lm_head(w, x, cfg: ModelConfig, ctx: ParallelContext):
     """Float32 logits over the whole vocabulary from a (V, D) head whose
-    vocabulary may be split: local logits, gathered."""
+    vocabulary may be split: local logits, gathered into full rows. Only
+    rows that are returned reach it (a decode step's, the prefill's last):
+    the loss takes `vocab_parallel_ce`, which gathers none."""
     if w.shape[0] == cfg.vocab_size:
         return x.float() @ w.float().t()
     x = PAR.copy_to(x, ctx, _ma(ctx))
     logits = x.float() @ w.float().t()
     return PAR.all_gather(logits, ctx, _ma(ctx), -1)
+
+
+def vocab_parallel_ce(w, x, labels, cfg: ModelConfig, ctx: ParallelContext):
+    """(summed nll over the labels >= 0, their count) of hidden states x
+    (B_l, c, D) against a (V/m, D) head whose vocabulary is split over the
+    model axis, without gathering logits: each rank takes the float32
+    logits of its slice (softcapped), and the ranks all-reduce each row's
+    max, its sum of exponentials and its gold logit (held by the rank whose
+    slice has the label), (B_l, c) floats each; logz = max + log(sum).
+
+    The gradient is one device's, by Megatron's rules: the sums' all-reduce
+    passes its gradient unchanged (each model rank computes the same loss
+    from them), so a rank's logits get softmax minus one-hot on its slice,
+    and x enters through `copy_to`, whose backward sums the slices' parts.
+    The max is detached: logz does not depend on it."""
+    ma = _ma(ctx)
+    vl = w.shape[0]
+    logits = PAR.copy_to(x, ctx, ma).float() @ w.float().t()
+    if cfg.logit_softcap:
+        c = cfg.logit_softcap
+        logits = c * torch.tanh(logits / c)
+    mx = PAR.all_reduce(logits.amax(-1), ctx, ma, op="max")
+    sumexp = PAR.all_reduce(torch.exp(logits - mx[..., None]).sum(-1),
+                            ctx, ma)
+    t = labels.long() - ctx.axis_index(ma) * vl
+    inside = (t >= 0) & (t < vl)
+    gold = torch.gather(logits, -1, t.clamp(0, vl - 1)[..., None])[..., 0]
+    gold = PAR.all_reduce(torch.where(inside, gold, 0.0), ctx, ma)
+    mask = (labels >= 0).float()
+    return ((mx + torch.log(sumexp) - gold) * mask).sum(), mask.sum()
 
 
 # ---------------------------------------------------------------------------

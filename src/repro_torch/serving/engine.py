@@ -365,11 +365,10 @@ class ServingEngine:
                     batch["positions"] = torch.arange(
                         bucket, device=self.device).expand(3, 1, bucket)
                 self._note_compile("prefill", prompt.shape)
-                logits, one_cache = M.forward(
-                    self.params, batch, cfg=self.cfg, mode="prefill",
-                    cache=one_cache, moe_dispatch=self.moe_dispatch,
+                last_logits, one_cache = M.prefill(
+                    self.params, batch, one_cache, cfg=self.cfg,
+                    last=plen - 1, moe_dispatch=self.moe_dispatch,
                     ctx=self.ctx)
-                last_logits = logits[:, plen - 1]
             self.n_prefills += 1
             if self._sharing:
                 # publish the prompt's full blocks while they really hold
