@@ -95,19 +95,26 @@ fails:
    to one rank's step by gates that a step on half the batch fails;
    gemma-2b's sharded paged engine (an eviction, a resume in the other
    data rank's slot, a prefix hit) against its dense sharded engine; the
-   sharded engines of full-width mamba2-2.7b, recurrentgemma-2b,
-   minicpm3-4b and qwen2-vl-2b (the Mamba-2, RG-LRU and MLA mixers on the
-   rank's heads or channels), each with its logits against one rank's,
-   tok/s, host launches and collectives a decode step (no all-gather as
-   large as a mixer weight), per-rank peak memory, and the paged kernel on
-   a rank's qwen2-vl pools against its plain version; whisper-base at the
+   sharded engines of full-width mamba2-2.7b and minicpm3-4b (both cut to
+   half their depth), recurrentgemma-2b and qwen2-vl-2b (the Mamba-2,
+   RG-LRU and MLA mixers on the rank's heads or channels), each with its
+   logits against one rank's, tok/s, host launches and collectives a
+   decode step (no all-gather as large as a mixer weight), per-rank peak
+   memory, and the paged kernel on a rank's qwen2-vl pools against its
+   plain version; whisper-base at the
    model level; reduced float32 engines of gemma-2b, deepseek (constraint
    form) and the four families against one CPU process. bf16 logits are
    held to the float32 model (no further than 1.25x one rank's bf16 run);
    it prints the collectives by kind and bytes, and fails if gemma-2b's
    train step or CP path's prefill all-gathers float32 logits over every
    position (the vocabulary-parallel head and cross-entropy gather the
-   returned rows alone). Phase 3 also holds the
+   returned rows alone). Every prefill and train step whose sequence the
+   model axis divides splits the residual stream over it (sequence
+   parallelism): it prints the train step's, the CP path's and each
+   engine's peak a rank and all-gathers, reduce-scatters and all-reduces,
+   and fails if the train step or the CP prefill reduce-scatters fewer
+   than two residual partials a layer or all-reduces one as large as a
+   whole (B_local, S, D) float32 partial. Phase 3 also holds the
    decode kernel's logsumexp, the CP decode body (each shard's decode,
    then the combine) and every kernel at the ranks' shapes against their
    plain versions;
@@ -1148,8 +1155,7 @@ SHARD_ADAMW = dict(warmup_steps=1)
 SHARD_TRAIN_GATES = dict(loss=1e-3, grad_norm=1e-2, update_norm=1e-3,
                          last_params=0.5, last_moments=0.1)
 # the Mamba-2, RG-LRU hybrid, MLA and M-RoPE families' sharded engines at
-# full width and depth (no depth is cut: the whole script stays near 420 s
-# on the H100, within half its limit), bf16, each serving phase 4's 8
+# full width and depth (no depth is cut), bf16, each serving phase 4's 8
 # requests (SHARD_SERVE) and freed before the next: mamba2-2.7b (40 SSD
 # heads a rank), recurrentgemma (1280 RG-LRU channels a rank; its one
 # kv-head on a batch-split cache takes the context-parallel decode, 10
@@ -2021,12 +2027,15 @@ def _rank_main(rank, world, port, args_path, out_path):
     res = {"paths": {}, "peak_gib": {}, "stages": {}}
     t_stage = [time.perf_counter()]
     # the largest float32 all-gather of a path, in elements (a bf16
-    # model's logits are its large float32 tensors)
-    f32_gather, count = [0], PAR._count
+    # model's logits are its large float32 tensors), and its 3-D
+    # reduce-scatters by element count (SP's residual slices)
+    f32_gather, scatters, count = [0], {}, PAR._count
 
     def counted(kind, out):
         if kind == "all-gather" and out.dtype == torch.float32:
             f32_gather[0] = max(f32_gather[0], out.numel())
+        if kind == "reduce-scatter" and out.dim() == 3:
+            scatters[out.numel()] = scatters.get(out.numel(), 0) + 1
         count(kind, out)
     PAR._count = counted
 
@@ -2041,6 +2050,7 @@ def _rank_main(rank, world, port, args_path, out_path):
         ops.reset_launches()
         PAR.reset_collectives()
         f32_gather[0] = 0
+        scatters.clear()
         if on_card:
             torch.cuda.reset_peak_memory_stats()
         dist.barrier()
@@ -2051,7 +2061,8 @@ def _rank_main(rank, world, port, args_path, out_path):
         dist.barrier()
         res["paths"][label] = dict(
             launches=ops.kernel_launches(), seconds=time.perf_counter() - t0,
-            collectives=PAR.collective_counts(), f32_gather=f32_gather[0])
+            collectives=PAR.collective_counts(), f32_gather=f32_gather[0],
+            scatters=dict(scatters))
         res["peak_gib"][label] = (torch.cuda.max_memory_allocated() / 2 ** 30
                                   if on_card else 0.0)
         return out
@@ -2339,6 +2350,46 @@ def head_gathers(res) -> None:
             fail(f"{label} gathers float32 logits over every position")
 
 
+def seq_parallel_readings(res) -> None:
+    """Sequence parallelism on the card: each sharded path's peak a rank
+    and its all-gathers, reduce-scatters and all-reduces (calls, GiB,
+    largest MiB); the train step (sequence 256) and the CP path's prefill
+    (64) split the residual over the model axis, so each reduce-scatters
+    at least two partials a layer to a residual slice (B_local, S/m, D),
+    after the mixer and after the MLP (ZeRO-1's gradient reduce-scatters
+    are not counted there), and all-reduces none as large as a whole
+    (B_local, S, D) float32 one."""
+    cfg = _cfg("gemma-2b")
+    b_local = _train_batch(cfg.vocab_size)["tokens"].shape[0] \
+        // SHARD_MESH[0]
+    held = {"11 gemma-2b sharded train step": (b_local, 256,
+                                               SHARD_TRAIN_LAYERS),
+            "11 gemma-2b CP decode": (CP_ROWS // SHARD_MESH[0], CP_PROMPT,
+                                      cfg.n_layers)}
+    for label, p in res["paths"].items():
+        if not (label in held or label.endswith("engine")):
+            continue
+        c = p["collectives"]
+        kinds = ", ".join(
+            f"{k} {c[k]['calls']} ({c[k]['bytes'] / 2 ** 30:.3f} GiB, "
+            f"largest {c[k]['largest'] / 2 ** 20:.2f} MiB)"
+            for k in ("all-gather", "reduce-scatter", "all-reduce"))
+        peaks = [f"{r[label]:.2f}" for r in res["peak_gib_by_rank"]]
+        print(f"sequence parallelism, {label[3:]}: {kinds}; peak GiB by "
+              f"rank {peaks}", flush=True)
+        if label not in held:
+            continue
+        b, s, layers = held[label]
+        partial = b * s * cfg.d_model * 4
+        residual = p["scatters"].get(b * s // SHARD_MESH[1] * cfg.d_model, 0)
+        print(f"sequence parallelism, {label[3:]}: {residual} "
+              f"reduce-scatters to a residual slice ({layers} layers)",
+              flush=True)
+        if residual < 2 * layers or c["all-reduce"]["largest"] >= partial:
+            fail(f"{label} does not split the residual over the sequence: "
+                 f"{c}")
+
+
 def run_sharded(paths, card: str, dev) -> None:
     """Phase 11 (see the module's docstring)."""
     import socket
@@ -2507,6 +2558,7 @@ def run_sharded(paths, card: str, dev) -> None:
     if all(fault[k] <= gate for k, gate in SHARD_TRAIN_GATES.items()):
         fail("the train step's gates pass a step on half the batch")
     head_gathers(res)
+    seq_parallel_readings(res)
     for arch in SHARD_SMALL:
         same = res["small"][arch] == refs["small"][arch]
         print(f"reduced f32 {arch} engine, {world} ranks on the card vs one "

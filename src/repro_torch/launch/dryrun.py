@@ -13,11 +13,15 @@ report gives, per rank:
   allocations; each kernel wrapper allocates its outputs alone, as the
   card kernels do);
 * the collectives' bytes by kind, from the helpers' counters (an
-  all-reduce counted twice, ring traffic, as the JAX package counts it);
+  all-reduce counted twice, ring traffic, as the JAX package counts it),
+  and the largest result of one call of each kind;
 
 and, from `costmodel.step_cost` on the unsharded step, ``global_flops`` and
 ``global_bytes_unfused``. There is no compile step and no XLA cost
-analysis. A pair that raises is reported and the run goes on.
+analysis. A pair that raises is reported and the run goes on. The
+steps run as a caller runs them: a train step or prefill whose sequence the
+model axis divides splits the residual stream over it (sequence
+parallelism, `ParallelContext.sequence_parallel`).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma-2b --shape decode_32k
@@ -228,6 +232,7 @@ def run_one(arch: str, shape_name: str, multi_pod: bool = False,
         "temp_peak_bytes": int(temp),
         "collective_bytes": collective_bytes(counts),
         "collective_calls": {k: counts[k]["calls"] for k in COLLECTIVES},
+        "collective_largest": {k: counts[k]["largest"] for k in COLLECTIVES},
         "global_flops": gc["flops"],
         "global_bytes_unfused": gc["bytes"],
     }

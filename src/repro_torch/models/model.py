@@ -81,6 +81,29 @@ def params_shapes(cfg: ModelConfig):
     return init_params(cfg, device="meta")
 
 
+def decayed_leaves(cfg: ModelConfig) -> list:
+    """Whether the JAX package's AdamW decays each parameter of `cfg`, in
+    `leaves` order. It decays leaves of two or more dims, and it holds a
+    scanned superblock's layers and whisper's encoder layers stacked along
+    a layer dim (`init_stack`, `init_encoder`), so that there a norm's
+    scale or a bias decays too; the port holds one dict a layer and counts
+    that dim here."""
+    from repro_torch.training.optimizer import leaves, tree_map
+    shapes = params_shapes(cfg)
+    prog = T.block_program(cfg)
+    lo = len(prog.head)
+    hi = lo + len(prog.superblock) * prog.n_superblocks
+
+    def decayed(tree, stacked):
+        return tree_map(lambda t: t.ndim + stacked >= 2, tree)
+    flags = {k: decayed(v, 0) for k, v in shapes.items()}
+    flags["layers"] = [decayed(p, int(lo <= i < hi))
+                       for i, p in enumerate(shapes["layers"])]
+    if "encoder" in shapes:
+        flags["encoder"]["layers"] = decayed(shapes["encoder"]["layers"], 1)
+    return leaves(flags)
+
+
 # ---------------------------------------------------------------------------
 # Embedding / head
 # ---------------------------------------------------------------------------
@@ -103,13 +126,30 @@ def embed_tokens(params, tokens, cfg: ModelConfig, ctx=None):
 def embed_inputs(params, batch, cfg: ModelConfig, ctx=None):
     """Token embeddings; for a VLM given ``vision_embeds`` (B, n, D), the
     first n positions take ``vision_embeds @ vision_proj`` instead (the
-    stub vision tower), as in the JAX package."""
+    stub vision tower), as in the JAX package. Under sequence parallelism
+    (``ctx.seq_sharded``) the rows of this rank's slice of the sequence:
+    the JAX package shards after the splice, and the slice takes the
+    vision rows that fall in it (``vision_proj``'s gradient summed over the
+    model axis)."""
     x = embed_tokens(params, batch["tokens"], cfg, ctx)
     if cfg.vision_tokens and "vision_embeds" in batch:
         e, w = batch["vision_embeds"], params["vision_proj"]
+        sp = PAR.is_sharded(ctx) and ctx.seq_sharded
+        if sp:
+            from repro_torch.models import tp as TP
+            w, = TP.seq_leaves(ctx, w)
         dt = torch.promote_types(e.dtype, w.dtype)
         v = e.to(dt) @ w.to(dt)
-        x = torch.cat([v.to(x.dtype), x[:, v.shape[1]:]], dim=1)
+        if not sp:
+            return torch.cat([v.to(x.dtype), x[:, v.shape[1]:]], dim=1)
+        # every rank's v takes part (a zero gradient where no vision row
+        # falls in the slice), so that every rank sums the gradient
+        s_loc, n = x.shape[1], v.shape[1]
+        o = ctx.axis_index(ctx.model_axis) * s_loc
+        vl = torch.nn.functional.pad(v, (0, 0, 0, max(o + s_loc - n, 0)))
+        inside = torch.arange(o, o + s_loc, device=x.device) < n
+        x = torch.where(inside[None, :, None], vl[:, o:o + s_loc].to(x.dtype),
+                        x)
     return x
 
 
@@ -174,6 +214,33 @@ def _global_rows(x, b: int, ctx, dim: int = 0):
     return x
 
 
+def _hidden(params, batch, *, cfg: ModelConfig, mode: str, cache, pos,
+            moe_dispatch: str, remat: bool, ctx):
+    """`hidden_states` at the residual's layout: (x, cache', aux, the
+    context of the forward). Under a mesh the context is
+    ``ctx.sequence_parallel(S)``: where it is ``seq_sharded``, x is this
+    rank's (B_local, S/m, D) slice of the sequence (the encoder, which the
+    JAX package does not shard, runs whole first)."""
+    if PAR.is_sharded(ctx):
+        b = batch["tokens"].shape[0]
+        batch, pos = _local_batch(batch, ctx), _local_pos(pos, b, ctx)
+    else:
+        moe_dispatch, ctx = _dispatch(ctx, moe_dispatch), None
+    enc_out = encode(params, batch, cfg, mode, ctx)
+    final_scale = params["final_norm"]["scale"]
+    if ctx is not None:
+        from repro_torch.models import tp as TP
+        ctx = ctx.sequence_parallel(batch["tokens"].shape[1])
+        final_scale, = TP.seq_leaves(ctx, final_scale)
+    x = embed_inputs(params, batch, cfg, ctx)
+    x, new_cache, aux = T.run_stack(
+        params["layers"], x, cfg=cfg, mode=mode, cache=cache, pos=pos,
+        positions=batch.get("positions"), moe_dispatch=moe_dispatch,
+        enc_out=enc_out, remat=remat, ctx=ctx)
+    x = L.rmsnorm({"scale": final_scale}, x, cfg.norm_eps)
+    return x, new_cache, aux, ctx
+
+
 def hidden_states(params, batch, *, cfg: ModelConfig, mode: str = "train",
                   cache=None, pos=None, moe_dispatch: str = "dense",
                   remat: bool = False, ctx=None):
@@ -181,19 +248,15 @@ def hidden_states(params, batch, *, cfg: ModelConfig, mode: str = "train",
     D), cache', aux), so that a caller runs the head on the rows it wants;
     aux is `transformer.run_stack`'s (the MoE load-balance loss). Under a
     mesh (``ctx``) the batch is global and the states are this rank's rows
-    (B_local, S, D)."""
-    if PAR.is_sharded(ctx):
-        b = batch["tokens"].shape[0]
-        batch, pos = _local_batch(batch, ctx), _local_pos(pos, b, ctx)
-    else:
-        moe_dispatch, ctx = _dispatch(ctx, moe_dispatch), None
-    enc_out = encode(params, batch, cfg, mode, ctx)
-    x = embed_inputs(params, batch, cfg, ctx)
-    x, new_cache, aux = T.run_stack(
-        params["layers"], x, cfg=cfg, mode=mode, cache=cache, pos=pos,
-        positions=batch.get("positions"), moe_dispatch=moe_dispatch,
-        enc_out=enc_out, remat=remat, ctx=ctx)
-    return L.rmsnorm(params["final_norm"], x, cfg.norm_eps), new_cache, aux
+    (B_local, S, D), gathered whole where the forward split the
+    sequence."""
+    x, new_cache, aux, ctx = _hidden(
+        params, batch, cfg=cfg, mode=mode, cache=cache, pos=pos,
+        moe_dispatch=moe_dispatch, remat=remat, ctx=ctx)
+    if ctx is not None:
+        from repro_torch.models import tp as TP
+        x = TP.whole_seq(x, ctx)
+    return x, new_cache, aux
 
 
 def forward(params, batch, *, cfg: ModelConfig, mode: str = "train",
@@ -210,8 +273,8 @@ def forward(params, batch, *, cfg: ModelConfig, mode: str = "train",
     (serving ignores it, as the JAX engine does).
 
     Under a mesh (``ctx``) the parameters and cache are this rank's shards
-    and the batch is global: each rank runs its rows and the logits of
-    every row are gathered."""
+    and the batch is global: each rank runs its rows (their whole
+    sequence) and the logits of every row are gathered."""
     x, new_cache, _ = hidden_states(params, batch, cfg=cfg, mode=mode,
                                     cache=cache, pos=pos,
                                     moe_dispatch=moe_dispatch, ctx=ctx)
@@ -228,17 +291,22 @@ def ce_from_hidden(params, x, labels, cfg: ModelConfig, ctx=None):
     does not divide S), each under `torch.utils.checkpoint`, so no chunk's
     (B, c, V) float32 logits live on into the backward. Labels below 0 are
     masked. Under a mesh whose model axis splits the head's vocabulary each
-    chunk is `tp.vocab_parallel_ce`: no logits cross the ranks. Returns
+    chunk is `tp.vocab_parallel_ce`: no logits cross the ranks. Under a
+    mesh x is at the residual's layout of ``ctx`` and is gathered over the
+    sequence (in its dtype) first where the forward split it. Returns
     (summed nll, count), float32."""
+    w = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    vocab_split = PAR.is_sharded(ctx) and w.shape[0] != cfg.vocab_size
+    if PAR.is_sharded(ctx):
+        from repro_torch.models import tp as TP
+        x = TP.enter(x, ctx) if vocab_split else TP.whole_seq(x, ctx)
     s = x.shape[1]
     chunk = min(CE_CHUNK, s)
     if s % chunk:
         chunk = s
-    w = params["embed"] if cfg.tie_embeddings else params["unembed"]
 
     def piece(xc, lc):
-        if PAR.is_sharded(ctx) and w.shape[0] != cfg.vocab_size:
-            from repro_torch.models import tp as TP
+        if vocab_split:
             return TP.vocab_parallel_ce(w, xc, lc, cfg, ctx)
         logits = lm_head(params, xc, cfg, ctx)
         logz = torch.logsumexp(logits, dim=-1)
@@ -267,13 +335,14 @@ def loss_fn(params, batch, *, cfg: ModelConfig, aux_weight: float = 0.01,
     batch's on every rank. Returns (total, {"loss", "moe_aux_loss"})."""
     if ctx is not None:
         moe_dispatch, remat = ctx.moe_dispatch, ctx.remat
-    x, _, aux = hidden_states(params, batch, cfg=cfg, mode="train",
+    x, _, aux, fctx = _hidden(params, batch, cfg=cfg, mode="train",
+                              cache=None, pos=None,
                               moe_dispatch=moe_dispatch, remat=remat,
                               ctx=ctx)
     labels, b = batch["labels"], batch["tokens"].shape[0]
     if PAR.is_sharded(ctx):
         labels = ctx.shard_batch(labels)
-    nll, cnt = ce_from_hidden(params, x, labels, cfg, ctx)
+    nll, cnt = ce_from_hidden(params, x, labels, cfg, fctx)
     if PAR.is_sharded(ctx) and ctx.batch_sharded(b):
         both = PAR.all_reduce(torch.stack([nll, cnt]), ctx, ctx.batch_spec)
         nll, cnt = both[0], both[1]
@@ -343,18 +412,37 @@ def prefill(params, batch, cache, *, cfg: ModelConfig, last=-1,
 
     Returns (logits of row `last` (B, V) float32, cache'). Under a mesh
     each rank runs the head on its own rows, gathers their vocabulary and
-    then the rows."""
-    x, new_cache, _ = hidden_states(params, batch, cfg=cfg, mode="prefill",
-                                    cache=cache, moe_dispatch=moe_dispatch,
+    then the rows; where the forward split the sequence, the row `last`
+    lies on one rank's slice, and only that row crosses the model axis."""
+    x, new_cache, _, fctx = _hidden(params, batch, cfg=cfg, mode="prefill",
+                                    cache=cache, pos=None,
+                                    moe_dispatch=moe_dispatch, remat=False,
                                     ctx=ctx)
     b = batch["tokens"].shape[0]
     if isinstance(last, torch.Tensor) and last.ndim:
         last = last.to(x.device).long()
         if PAR.is_sharded(ctx):
             last = _local_pos(last, b, ctx)
-    x = x[torch.arange(x.shape[0], device=x.device), last]
+    if fctx is not None and fctx.seq_sharded:
+        x = _row_of_slices(x, last, fctx)
+    else:
+        x = x[torch.arange(x.shape[0], device=x.device), last]
     logits = lm_head(params, x[:, None], cfg, ctx)[:, 0]
     return _global_rows(logits, b, ctx), new_cache
+
+
+def _row_of_slices(x, last, ctx):
+    """Row `last` (an int, or one position a row) of the sequence whose
+    slices (B, S/m, D) the model ranks hold: the rank that holds it gives
+    it, the others zeros, and one (B, D) all-reduce sums them (exactly)."""
+    b, s_loc = x.shape[0], x.shape[1]
+    s = s_loc * ctx.model_size
+    idx = torch.as_tensor(last, device=x.device).long().expand(b) % s
+    local = idx - ctx.axis_index(ctx.model_axis) * s_loc
+    owned = (local >= 0) & (local < s_loc)
+    row = x[torch.arange(b, device=x.device), local.clamp(0, s_loc - 1)]
+    row = torch.where(owned[:, None], row, torch.zeros_like(row))
+    return PAR.all_reduce(row, ctx, ctx.model_axis)
 
 
 def decode_step(params, tokens, cache, pos, *, cfg: ModelConfig,

@@ -22,13 +22,21 @@ Switch load-balance loss.
 Under a mesh (``ctx``, local shards): the dense and capacity dispatches run
 on this rank's expert-hidden columns (``we_*`` split on F) and sum over the
 model axis, with the load-balance statistics summed over the data axes, so
-that the loss is the JAX package's over the global batch. Two
+that the loss is the JAX package's over the global batch. Under sequence
+parallelism (``ctx.seq_sharded``) each rank routes its own slice of the
+sequence (the router's gradient summed over the model axis, the statistics
+summed over it too), and the tokens, their top-k weights and ids are
+gathered over the sequence before the dispatch, whose partial sums are
+reduce-scattered back to the slice; where the expert-hidden columns do not
+divide the model axis the layer runs on the gathered sequence, the same on
+every rank (`tp.on_whole_sequence`). Two
 expert-parallel forms take the expert dim over the model axis instead (the
 F-split weights are re-laid by one all-to-all each, as GSPMD reshards them
 for the JAX package):
 
 * ``moe_layer_ep_a2a``: each rank routes its own tokens (its rows, and its
-  slice of the sequence where the model axis divides it), packs them into
+  slice of the sequence where the model axis divides it: under sequence
+  parallelism the slice it holds, with no gather), packs them into
   an (E, C, D) buffer, exchanges it with one all-to-all so that each rank
   holds every rank's rows for its E/m experts, runs them, and returns the
   rows with the inverse all-to-all. Without a mesh it is capacity
@@ -100,13 +108,20 @@ def _aux_loss(probs, topi, e: int, ctx=None):
     """Switch load-balance loss: E * sum_e f_e * P_e over all tokens. Under
     a mesh the sums run over the data axes, so that the loss is the global
     batch's (where the rows are not split, every data rank adds the same
-    rows, and the fractions are unchanged)."""
+    rows, and the fractions are unchanged), and under sequence parallelism
+    over the model axis too (each rank routed its slice)."""
     dispatch = F.one_hot(topi.reshape(-1, topi.shape[-1]), e).float().sum(1)
-    if not PAR.is_sharded(ctx) or ctx.batch_size_divisor == 1:
+    axes = ()
+    if PAR.is_sharded(ctx):
+        if ctx.batch_size_divisor > 1:
+            axes = PAR._as_axes(ctx.batch_spec)
+        if ctx.seq_sharded:
+            axes += (ctx.model_axis,)
+    if not axes:
         return e * torch.sum(dispatch.mean(0) * probs.mean(0))
     stats = torch.cat([dispatch.sum(0), probs.sum(0),
                        probs.new_full((1,), probs.shape[0])])
-    stats = PAR.all_reduce(stats, ctx, ctx.batch_spec)
+    stats = PAR.all_reduce(stats, ctx, axes)
     n = stats[-1]
     return e * torch.sum((stats[:e] / n) * (stats[e:2 * e] / n))
 
@@ -121,60 +136,105 @@ def _shared_partial(p, x, cfg: ModelConfig, ctx):
     if not PAR.is_sharded(ctx):
         return mlp(p["shared"], x, cfg.activation), False
     from repro_torch.models import tp as TP
-    h = cfg.n_shared_experts * (cfg.moe_d_ff or cfg.d_ff)
-    return TP.mlp_partial(p["shared"], x, cfg.activation, ctx, h)
+    return TP.mlp_partial(p["shared"], x, cfg.activation, ctx,
+                          _shared_hidden(cfg))
 
 
-def _finish(out, p, x_shared, cfg: ModelConfig, ctx, partial: bool):
+def _shared_hidden(cfg: ModelConfig) -> int:
+    return cfg.n_shared_experts * (cfg.moe_d_ff or cfg.d_ff)
+
+
+def _finish(out, p, x, cfg: ModelConfig, ctx, x_in=None):
     """Add the shared experts and sum the partial sums over model (kept
-    in float32 where the model is narrower, `tp.wide`), in x's dtype."""
+    in float32 where the model is narrower, `tp.wide`), at x's layout in
+    x's dtype. ``x_in``: x as it entered this rank's expert columns
+    (`tp.enter`), given where `out` is a partial sum over model (at its
+    layout); the shared experts reuse it where their columns are split
+    too."""
     from repro_torch.models import tp as TP
-    dt = x_shared.dtype
-    if cfg.n_shared_experts:
-        sh, sh_partial = _shared_partial(p, x_shared, cfg, ctx)
-        if sh_partial and partial:
-            return TP.sum_partials(out + sh, ctx, dt)
-        if sh_partial:
-            return out + TP.sum_partials(sh, ctx, dt)
-        if partial:
-            return TP.sum_partials(out, ctx, dt) + sh
-        return out + sh
-    return TP.sum_partials(out, ctx, dt) if partial else out
+    dt = x.dtype
+    partial = x_in is not None
+    if not cfg.n_shared_experts:
+        return TP.sum_partials(out, ctx, dt) if partial else out
+    if partial and TP._sharded_dim(ctx, _shared_hidden(cfg)):
+        sh = TP.mlp_columns(p["shared"], x_in, cfg.activation)
+        return TP.sum_partials(out + sh, ctx, dt)
+    sh, sh_partial = _shared_partial(p, x, cfg, ctx)
+    if partial:
+        out = TP.sum_partials(out, ctx, dt)
+    return out + (TP.sum_partials(sh, ctx, dt) if sh_partial else sh)
+
+
+def _route(p, x, cfg: ModelConfig, ctx, partial: bool):
+    """Route x (B, S, D): (the tokens as the experts take them (B, S', D),
+    the top-k gates (B, S', k) float32 and ids (B, S', k), the aux loss).
+    Where ``partial`` (this rank's expert columns: a partial sum over
+    model) the tokens and gates enter through `tp.enter`; under sequence
+    parallelism each rank routes its own slice and S' is the gathered
+    sequence (gates and ids in one all-gather, the ids as exact floats)."""
+    from repro_torch.models import tp as TP
+    b, s, d = x.shape
+    k = cfg.top_k
+    router = p["router"]
+    if PAR.is_sharded(ctx):
+        router, = TP.seq_leaves(ctx, router)
+    probs, topv, topi = router_probs({"router": router}, x.reshape(b * s, d),
+                                     cfg)
+    aux = _aux_loss(probs, topi, cfg.n_experts, ctx)
+    topv, topi = topv.view(b, s, k), topi.view(b, s, k)
+    if not partial:
+        return x, topv, topi, aux
+    if ctx.seq_sharded:
+        both = TP.enter(torch.cat([topv, topi.to(topv.dtype)], -1), ctx)
+        return TP.enter(x, ctx), both[..., :k], both[..., k:].long(), aux
+    return TP.enter(x, ctx), TP.enter(topv, ctx), topi, aux
+
+
+def _seq_whole(cfg: ModelConfig, ctx) -> bool:
+    """Whether the dense and capacity dispatches run on the gathered
+    sequence: sequence parallelism without split expert columns."""
+    return PAR.is_sharded(ctx) and ctx.seq_sharded and not _f_split(cfg,
+                                                                    ctx)
 
 
 def moe_layer(p, x, *, cfg: ModelConfig, ctx=None):
     """Dense dispatch. x: (B, S, D) -> (out, {"moe_aux_loss"})."""
-    b, s, d = x.shape
-    xt = x.reshape(b * s, d)
-    probs, topv, topi = router_probs(p, xt, cfg)
-    # combine weights (tokens, E), zero outside the top-k, in x's dtype
-    comb = torch.zeros_like(probs).scatter(1, topi, topv).to(x.dtype)
+    if _seq_whole(cfg, ctx):
+        from repro_torch.models import tp as TP
+        return TP.on_whole_sequence(
+            lambda xw, c: moe_layer(p, xw, cfg=cfg, ctx=c), x, ctx)
     partial = _f_split(cfg, ctx)
+    xin, topv, topi, aux = _route(p, x, cfg, ctx, partial)
+    b, s, d = xin.shape
+    k, e = cfg.top_k, cfg.n_experts
+    # combine weights (tokens, E), zero outside the top-k, in x's dtype
+    comb = topv.new_zeros(b * s, e).scatter(
+        1, topi.reshape(b * s, k), topv.reshape(b * s, k)).to(x.dtype)
     if partial:      # this rank's F columns: a partial sum over model
-        xt_in = PAR.copy_to(xt, ctx, ctx.model_axis)
-        comb = PAR.copy_to(comb, ctx, ctx.model_axis).float()
-    else:
-        xt_in = xt
-    expert_out = _experts(p, xt_in, cfg, wide=partial)  # (E, T, D)
-    out = torch.einsum("etd,te->td", expert_out, comb)
-    out = _finish(out, p, xt, cfg, ctx, partial)
-    return out.reshape(b, s, d), {
-        "moe_aux_loss": _aux_loss(probs, topi, cfg.n_experts, ctx)}
+        comb = comb.float()
+    expert_out = _experts(p, xin.reshape(b * s, d), cfg,
+                          wide=partial)                      # (E, T, D)
+    out = torch.einsum("etd,te->td", expert_out, comb).reshape(b, s, d)
+    out = _finish(out, p, x, cfg, ctx, xin if partial else None)
+    return out, {"moe_aux_loss": aux}
 
 
 def moe_layer_capacity(p, x, *, cfg: ModelConfig,
                        capacity_factor: float = 1.25, ctx=None):
     """Capacity dispatch, packed per row. x: (B, S, D) -> (out,
     {"moe_aux_loss"})."""
+    if _seq_whole(cfg, ctx):
+        from repro_torch.models import tp as TP
+        return TP.on_whole_sequence(
+            lambda xw, c: moe_layer_capacity(
+                p, xw, cfg=cfg, capacity_factor=capacity_factor, ctx=c),
+            x, ctx)
+    partial = _f_split(cfg, ctx)
+    x_res = x
+    x, topv, topi, aux = _route(p, x, cfg, ctx, partial)
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     cap = int(math.ceil(k * s / e * capacity_factor))
-    probs, topv, topi = router_probs(p, x.reshape(b * s, d), cfg)
-    partial = _f_split(cfg, ctx)
-    x_sh = x
-    if partial:      # this rank's F columns: a partial sum over model
-        x = PAR.copy_to(x, ctx, ctx.model_axis)
-        topv = PAR.copy_to(topv, ctx, ctx.model_axis)
     dev = x.device
     flat_e = topi.reshape(b, s * k)
     flat_w = topv.reshape(b, s * k)
@@ -200,8 +260,8 @@ def moe_layer_capacity(p, x, *, cfg: ModelConfig,
         * (sw * keep)[..., None].to(flat.dtype)
     out = flat.new_zeros(b, s, d).index_put_(
         (rows.expand(b, s * k), st), contrib, accumulate=True)
-    out = _finish(out, p, x_sh, cfg, ctx, partial)
-    return out, {"moe_aux_loss": _aux_loss(probs, topi, e, ctx)}
+    out = _finish(out, p, x_res, cfg, ctx, x if partial else None)
+    return out, {"moe_aux_loss": aux}
 
 
 def _local_experts(p, cfg: ModelConfig, ctx):
@@ -233,15 +293,18 @@ def moe_layer_ep_a2a(p, x, *, cfg: ModelConfig, ctx=None,
                                   capacity_factor=capacity_factor)
     b, s, d = x.shape
     ma = ctx.model_axis
-    seq_split = s % m == 0
-    if not seq_split and torch.is_grad_enabled() and x.requires_grad:
+    # under sequence parallelism x is this rank's slice already
+    seq_split = not ctx.seq_sharded and s % m == 0
+    if not (seq_split or ctx.seq_sharded) and torch.is_grad_enabled() \
+            and x.requires_grad:
         raise NotImplementedError(
             "ep_a2a's backward needs the sequence to split over the model "
             "axis (each rank routing its own tokens)")
     s_loc = s // m if seq_split else s
     cap = int(math.ceil(k * b * s_loc / e * capacity_factor))
     xl = PAR.split(x, ctx, ma, 1) if seq_split else x
-    router = PAR.copy_to(p["router"], ctx, ma) if seq_split else p["router"]
+    router = PAR.copy_to(p["router"], ctx, ma) \
+        if seq_split or ctx.seq_sharded else p["router"]
     w = _local_experts(p, cfg, ctx)
 
     tl = b * s_loc
@@ -279,7 +342,7 @@ def moe_layer_ep_a2a(p, x, *, cfg: ModelConfig, ctx=None,
     disp = F.one_hot(topi, e).float().sum(1)
     aux = e * torch.sum(disp.mean(0) * probs.mean(0))
     aux = PAR.all_reduce(aux, ctx, ctx.mesh.axis_names) / ctx.mesh.size
-    out = _finish(out, p, x, cfg, ctx, False)
+    out = _finish(out, p, x, cfg, ctx)
     return out, {"moe_aux_loss": aux}
 
 
@@ -291,21 +354,20 @@ def moe_layer_expert_parallel(p, x, *, cfg: ModelConfig, ctx=None):
     if not PAR.is_sharded(ctx) or ctx.model_size == 1 \
             or e % ctx.model_size:
         return moe_layer(p, x, cfg=cfg, ctx=ctx)
-    b, s, d = x.shape
-    ma = ctx.model_axis
-    xt = x.reshape(b * s, d)
-    probs, topv, topi = router_probs(p, xt, cfg)
-    comb = torch.zeros_like(probs).scatter(1, topi, topv).to(x.dtype)
+    xin, topv, topi, aux = _route(p, x, cfg, ctx, True)
+    b, s, d = xin.shape
+    k = cfg.top_k
+    comb = topv.new_zeros(b * s, e).scatter(
+        1, topi.reshape(b * s, k), topv.reshape(b * s, k)).to(x.dtype)
     el = e // ctx.model_size
-    r = ctx.axis_index(ma)
-    comb = PAR.copy_to(comb, ctx, ma)[:, r * el:(r + 1) * el]
+    r = ctx.axis_index(ctx.model_axis)
+    comb = comb[:, r * el:(r + 1) * el]
     w = _local_experts(p, cfg, ctx)
-    expert_out = _experts(w, PAR.copy_to(xt, ctx, ma), cfg)   # (E/m, T, D)
+    expert_out = _experts(w, xin.reshape(b * s, d), cfg)   # (E/m, T, D)
     # this rank's experts: a partial sum over model, in float32
     out = torch.einsum("etd,te->td", expert_out.float(), comb.float())
-    out = _finish(out, p, xt, cfg, ctx, True)
-    return out.reshape(b, s, d), {
-        "moe_aux_loss": _aux_loss(probs, topi, e, ctx)}
+    out = _finish(out.reshape(b, s, d), p, x, cfg, ctx, xin)
+    return out, {"moe_aux_loss": aux}
 
 
 def moe_fn(dispatch: str, ctx=None):

@@ -8,11 +8,13 @@ form): the sharding follows the JAX package's name-based rules
 (`spec_for_param`, `param_specs`, `opt_state_shardings`), kept here as plain
 spec trees (per leaf, a tuple of mesh-axis names or None per dim), and the
 model code issues the collectives that GSPMD inserts for the JAX package
-(an all-reduce after a row-parallel product, an all-gather of a vocabulary-
-parallel head, the context-parallel decode's combine, the expert-parallel
-all-to-alls). Every collective goes through one set of helpers below, which
-count calls and result bytes by kind (`collective_counts`); those read by
-the dry run and ``chip_smoke.py``.
+(an all-reduce after a row-parallel product, or, where the residual stream
+is split over the sequence, an all-gather of the sequence before a layer
+and a reduce-scatter after it; an all-gather of a vocabulary-parallel head,
+the context-parallel decode's combine, the expert-parallel all-to-alls).
+Every collective goes through one set of helpers below, which count calls
+and result bytes by kind (`collective_counts`); those read by the dry run
+and ``chip_smoke.py``.
 
 A `Mesh` is axis names and sizes, this rank's coordinate along each axis
 and a process group per axis and per set of axes. ``init_mesh`` builds it on
@@ -170,6 +172,9 @@ class ParallelContext:
     remat: bool = True              # activation checkpointing in train_step
     moe_expert_parallel: bool = False
     moe_dispatch: str = "dense"     # dense | capacity | ep_a2a
+    # the residual stream a layer takes is this rank's slice of the
+    # sequence (set for one forward by `sequence_parallel`)
+    seq_sharded: bool = False
 
     # ------------------------------------------------------------------
     def axis_size(self, name: Optional[Axes]) -> int:
@@ -219,13 +224,33 @@ class ParallelContext:
             return x
         return local_view(x, _spec_at(x.ndim, dim, self.batch_spec), self)
 
+    def seq_splits(self, s: int) -> bool:
+        """The JAX package's rule for sequence parallelism: a sequence of
+        `s` > 1 tokens that the model axis (of size > 1) divides."""
+        m = self.model_size
+        return self.mesh is not None and m > 1 and s > 1 and s % m == 0
+
+    def sequence_parallel(self, s: int) -> "ParallelContext":
+        """This context for one forward over `s` tokens: ``seq_sharded``
+        where `seq_splits` holds (the residual stream between the blocks is
+        then this rank's (B, S/m, D) slice, Megatron's sequence
+        parallelism), else held whole on every model rank."""
+        return dataclasses.replace(self, seq_sharded=self.seq_splits(s))
+
     def shard_activation(self, x):
-        """(B, S, D) activations at residual boundaries. In the Megatron
-        form the residual stream lies batch-split over the data axes and
-        whole on every model rank, so this is the identity; the JAX package
-        constrains the sequence over ``model`` here, a layout GSPMD chooses
-        and undoes at the next product."""
-        return x
+        """(B, S, D) activations at residual boundaries, held the same on
+        every model rank: this rank's slice of the sequence where
+        `seq_splits` holds, taken locally (the backward all-gathers the
+        gradient); else x. The JAX package constrains the sequence over
+        ``model`` here, so that the residual saved per layer for the
+        backward costs 1/m of the replicated footprint; the layers then
+        gather the sequence before their column-parallel products and
+        reduce-scatter their row-parallel partial sums
+        (`gather_seq`, `scatter_seq`)."""
+        if self.mesh is None or x.ndim != 3 \
+                or not self.seq_splits(x.shape[1]):
+            return x
+        return split(x, self, self.model_axis, 1)
 
     def constrain(self, x, *spec):
         """The local shard of a tensor held whole on this rank, along
@@ -601,6 +626,24 @@ class _Split(torch.autograd.Function):
             None, None
 
 
+class _ScatterSeq(torch.autograd.Function):
+    """Reduce-scatter along `dim` (the sum over `axes`, this rank's chunk
+    kept), cast to `dtype`; the backward all-gathers the gradient in
+    `dtype` (the sum's consumers are each rank's own chunk) and casts it
+    back."""
+
+    @staticmethod
+    def forward(fctx, x, ctx, axes, dim, dtype):
+        fctx.args, fctx.in_dtype = (ctx, axes, dim), x.dtype
+        return _reduce_scatter_raw(x, ctx, axes, dim).to(dtype)
+
+    @staticmethod
+    def backward(fctx, g):
+        ctx, axes, dim = fctx.args
+        return _all_gather_raw(g, ctx, axes, dim).to(fctx.in_dtype), None, \
+            None, None, None
+
+
 class _AllToAll(torch.autograd.Function):
 
     @staticmethod
@@ -660,6 +703,28 @@ def reduce_scatter(x, ctx: ParallelContext, axes, dim: int):
     if _trivial(ctx, axes):
         return x
     return _reduce_scatter_raw(x, ctx, axes, dim % x.ndim)
+
+
+def gather_seq(x, ctx: ParallelContext, axes):
+    """Sequence parallelism's entry into a layer: the ranks' slices of the
+    sequence (dim 1) concatenated, in x's dtype; the backward
+    reduce-scatters the gradient (each rank's consumers are its own heads
+    or columns, so each holds a partial gradient). Where the residual is
+    held whole, `copy_to` stands here."""
+    return all_gather(x, ctx, axes, 1, grad="sum")
+
+
+def scatter_seq(x, ctx: ParallelContext, axes, dtype=None):
+    """Sequence parallelism's exit from a layer: partial sums (B, S, ...)
+    summed over `axes` and cut to this rank's slice of the sequence (dim
+    1), in one reduce-scatter, then cast to `dtype` (x's by default: the
+    row-parallel products sum in float32 and round once); the backward
+    all-gathers the gradient in `dtype`. Where the residual is held whole,
+    `all_reduce` stands here."""
+    dtype = x.dtype if dtype is None else dtype
+    if _trivial(ctx, axes):
+        return x.to(dtype)
+    return _ScatterSeq.apply(x, ctx, axes, 1, dtype)
 
 
 def all_to_all(x, ctx: ParallelContext, axes, split_dim: int,

@@ -17,10 +17,21 @@ for the JAX package, through the counted helpers of `models/parallel.py`:
   combine by max and sum.
 * the MLP and the dense and capacity MoE dispatches: column-parallel
   products on the rank's hidden columns, an all-reduce after.
+* sequence parallelism (``ctx.seq_sharded``, `ParallelContext.
+  sequence_parallel`): the residual stream between the blocks is this
+  rank's (B, S/m, D) slice of the sequence. A layer's input enters its
+  column-parallel products through one all-gather of the sequence
+  (`enter`, where `copy_to` stands for a residual held whole) and its
+  row-parallel partial sums leave through one reduce-scatter
+  (`sum_partials`); a layer with no sharded form gathers the sequence,
+  runs whole and keeps its slice (`whole_seq`, `to_residual`). Decode (one
+  token) and a sequence the model axis does not divide keep the residual
+  whole.
 * the vocabulary-parallel embedding (a masked local gather and an
-  all-reduce), head (local logits, gathered over the vocabulary for the
-  rows a caller returns) and cross-entropy (each row's max, sum of
-  exponentials and gold logit all-reduced; no logits gathered).
+  all-reduce, or a reduce-scatter to the rank's slice of the sequence),
+  head (local logits, gathered over the vocabulary for the rows a caller
+  returns) and cross-entropy (each row's max, sum of exponentials and gold
+  logit all-reduced; no logits gathered).
 * the Mamba-2, RG-LRU and MLA mixers on the rank's heads or channels
   (`mixer_layer`): column-parallel input projections, the SSD (with the
   ssd_diag kernel), the doubling scan and MLA's flash prefill on the local
@@ -39,10 +50,13 @@ Gradients follow Megatron's rules: a tensor that the model axis holds whole
 enters a column-parallel product through `copy_to` (its gradient summed),
 and a row-parallel product's all-reduce passes its gradient unchanged. A
 replicated leaf that a rank uses on its own slice or partial sum has a
-partial gradient, summed over the model axis the same way.
+partial gradient, summed over the model axis the same way; under sequence
+parallelism that includes the leaves applied token by token to the
+residual's slice (the norms, `seq_leaves`).
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 
@@ -75,9 +89,59 @@ def wide(t):
 
 
 def sum_partials(y, ctx: ParallelContext, dtype):
-    """Partial sums (float32 where the model is narrower) summed over the
-    model axis, in the model's dtype."""
+    """Partial sums (B, S, ...) (float32 where the model is narrower)
+    summed over the model axis, in the model's dtype: an all-reduce, or
+    under sequence parallelism a reduce-scatter to this rank's slice of the
+    sequence."""
+    if ctx.seq_sharded:
+        return PAR.scatter_seq(y, ctx, _ma(ctx), dtype)
     return PAR.all_reduce(y, ctx, _ma(ctx)).to(dtype)
+
+
+def enter(x, ctx: ParallelContext):
+    """A tensor at the residual stream's layout entering products on this
+    rank's heads or columns: whole, its gradient summed over the model
+    axis (`copy_to`; under sequence parallelism the all-gather of the
+    sequence, `parallel.gather_seq`)."""
+    if ctx.seq_sharded:
+        return PAR.gather_seq(x, ctx, _ma(ctx))
+    return PAR.copy_to(x, ctx, _ma(ctx))
+
+
+def whole_seq(x, ctx: ParallelContext):
+    """x at the residual's layout, whole, for work that every model rank
+    runs the same (under sequence parallelism an all-gather whose backward
+    keeps this rank's slice of the gradient)."""
+    if ctx.seq_sharded:
+        return PAR.all_gather(x, ctx, _ma(ctx), 1)
+    return x
+
+
+def to_residual(y, ctx: ParallelContext):
+    """A result held whole and the same on every model rank, at the
+    residual's layout (its slice of the sequence, whose backward gathers
+    the gradient)."""
+    return ctx.shard_activation(y) if ctx.seq_sharded else y
+
+
+def on_whole_sequence(fn, x, ctx: ParallelContext):
+    """``fn(x, ctx) -> (out, extra)`` for a layer with no sequence-parallel
+    form: under sequence parallelism it runs on the gathered sequence with
+    the residual held whole, the same on every model rank, and `out` is cut
+    back to this rank's slice."""
+    if not ctx.seq_sharded:
+        return fn(x, ctx)
+    out, extra = fn(whole_seq(x, ctx),
+                    dataclasses.replace(ctx, seq_sharded=False))
+    return to_residual(out, ctx), extra
+
+
+def seq_leaves(ctx: ParallelContext, *ts):
+    """Replicated leaves applied token by token to the residual stream (a
+    norm's scale): under sequence parallelism each rank applies them to its
+    own slice, so their gradients are summed over the model axis
+    (`summed_grads`); else as they are."""
+    return summed_grads(ctx, *ts) if ctx.seq_sharded else ts
 
 
 # ---------------------------------------------------------------------------
@@ -86,15 +150,19 @@ def sum_partials(y, ctx: ParallelContext, dtype):
 
 
 def embed_lookup(w, tokens, cfg: ModelConfig, ctx: ParallelContext):
-    """Rows of the (V, D) table, whose vocabulary may be split over the
-    model axis: each rank looks up the tokens it holds, zeros the rest, and
-    the ranks sum."""
+    """Rows of the (V, D) table at the residual's layout, whose vocabulary
+    may be split over the model axis: each rank looks up the tokens it
+    holds, zeros the rest, and the ranks sum (a reduce-scatter to this
+    rank's slice of the sequence under sequence parallelism; one nonzero
+    term a row, so the sum is exact in the table's dtype)."""
     if w.shape[0] == cfg.vocab_size:
-        return w[tokens]
+        return to_residual(w[tokens], ctx)
     vl = w.shape[0]
     t = tokens - ctx.axis_index(_ma(ctx)) * vl
     inside = (t >= 0) & (t < vl)
     x = w[t.clamp(0, vl - 1)] * inside[..., None].to(w.dtype)
+    if ctx.seq_sharded:
+        return PAR.scatter_seq(x, ctx, _ma(ctx))
     return PAR.all_reduce(x, ctx, _ma(ctx))
 
 
@@ -121,11 +189,11 @@ def vocab_parallel_ce(w, x, labels, cfg: ModelConfig, ctx: ParallelContext):
     The gradient is one device's, by Megatron's rules: the sums' all-reduce
     passes its gradient unchanged (each model rank computes the same loss
     from them), so a rank's logits get softmax minus one-hot on its slice,
-    and x enters through `copy_to`, whose backward sums the slices' parts.
-    The max is detached: logz does not depend on it."""
+    and x is entered by the caller (`enter`, whose backward sums the
+    slices' parts). The max is detached: logz does not depend on it."""
     ma = _ma(ctx)
     vl = w.shape[0]
-    logits = PAR.copy_to(x, ctx, ma).float() @ w.float().t()
+    logits = x.float() @ w.float().t()
     if cfg.logit_softcap:
         c = cfg.logit_softcap
         logits = c * torch.tanh(logits / c)
@@ -145,14 +213,21 @@ def vocab_parallel_ce(w, x, labels, cfg: ModelConfig, ctx: ParallelContext):
 # ---------------------------------------------------------------------------
 
 
+def mlp_columns(p, xin, activation: str):
+    """The gated MLP on this rank's hidden columns of an entered `xin`
+    (`enter`): a partial sum over the model axis (`wide`)."""
+    return wide(L.mlp_hidden(p, xin, activation)) @ wide(p["w_down"])
+
+
 def mlp_partial(p, x, activation: str, ctx: ParallelContext, hidden: int):
-    """(y, partial): the gated MLP on this rank's hidden columns, and
-    whether y is a partial sum over the model axis (`wide`; the caller
-    sums)."""
+    """(y, partial): the gated MLP of x (at the residual's layout) on this
+    rank's hidden columns, and whether y is a partial sum over the model
+    axis (`wide`; the caller sums with `sum_partials`). Hidden units that
+    do not divide the model axis run whole, y at x's layout."""
     if not _sharded_dim(ctx, hidden):
-        return L.mlp(p, x, activation), False
-    h = L.mlp_hidden(p, PAR.copy_to(x, ctx, _ma(ctx)), activation)
-    return wide(h) @ wide(p["w_down"]), True
+        return to_residual(L.mlp(p, whole_seq(x, ctx), activation), ctx), \
+            False
+    return mlp_columns(p, enter(x, ctx), activation), True
 
 
 def mlp(p, x, activation: str, ctx: ParallelContext, hidden: int):
@@ -263,13 +338,16 @@ def attention_layer(p, x, *, cfg: ModelConfig, ctx: ParallelContext,
                     mode: str, cache=None, cspec=None, pos=None,
                     window: int = 0, positions=None, enc_out=None,
                     enc_cache=None, causal: bool = True):
-    """`layers.attention_layer` on local shards. ``cspec``: the spec of
-    the cache's ``k``/``v`` (None: held whole on this rank)."""
+    """`layers.attention_layer` on local shards, x at the residual's layout
+    (its slice of the sequence under sequence parallelism: q, K and V are
+    computed over the gathered sequence). ``cspec``: the spec of the
+    cache's ``k``/``v`` (None: held whole on this rank)."""
     hs = _Heads(cfg, ctx)
     ma = _ma(ctx)
-    b, s, _ = x.shape
     scale = 1.0 / math.sqrt(hs.hd)
-    xin = PAR.copy_to(x, ctx, ma) if hs.q_sharded or hs.kv_sharded else x
+    xin = enter(x, ctx) if hs.q_sharded or hs.kv_sharded \
+        else whole_seq(x, ctx)
+    b, s, _ = xin.shape
     q = xin @ p["wq"]
     if hs.q_sharded and not hs.q_local:
         q = PAR.all_gather(q, ctx, ma, -1)
@@ -335,11 +413,12 @@ def attention_layer(p, x, *, cfg: ModelConfig, ctx: ParallelContext,
 
 def _out_proj(p, out, hs: _Heads, ctx: ParallelContext):
     """The attention output (B, S, heads, D) through ``wo``: row-parallel
-    over the rank's q-head columns, then summed over the model axis."""
+    over the rank's q-head columns, then summed over the model axis (at
+    the residual's layout)."""
     b, s = out.shape[:2]
     o = out.reshape(b, s, -1)
     if not hs.q_sharded:
-        return o @ p["wo"]
+        return to_residual(o @ p["wo"], ctx)
     if o.shape[-1] == hs.h * hs.hd:        # all heads: keep this rank's
         o = PAR.split(o, ctx, _ma(ctx), -1)
     return sum_partials(wide(o) @ wide(p["wo"]), ctx, o.dtype)
@@ -575,7 +654,7 @@ def rglru_layer(p, x, *, cfg: ModelConfig, ctx: ParallelContext, mode: str,
     sliced to them, the cache's ``h``/``conv`` shards as they lie, and the
     row-parallel output projection."""
     sl = _rank_slice(RG._d_rnn(cfg), ctx)
-    xin = PAR.copy_to(x, ctx, _ma(ctx))
+    xin = enter(x, ctx)
     gate = F.gelu(xin @ p["w_gate_in"], approximate="tanh")
     names = ("conv", "w_a", "b_a", "w_x", "b_x", "lam")
     rep = summed_grads(ctx, *(p[n] for n in names))
@@ -598,12 +677,12 @@ def ssm_layer(p, x, *, cfg: ModelConfig, ctx: ParallelContext, mode: str,
     shard of the new state written back. The gated norm spans all channels:
     its sums of squares are summed over the model axis in float32."""
     s_cfg, di, nh = SSM._dims(cfg)
-    b, s, _ = x.shape
     n, hd, k = s_cfg.d_state, s_cfg.head_dim, s_cfg.d_conv
     hs = _rank_slice(nh, ctx)
     cs = slice(hs.start * hd, hs.stop * hd)
     ma = _ma(ctx)
-    xin = PAR.copy_to(x, ctx, ma)
+    xin = enter(x, ctx)
+    b, s, _ = xin.shape
     wB, wC, w_dt, dt_bias, A_log, D, kern, scale = summed_grads(
         ctx, p["wB"], p["wC"], p["w_dt"], p["dt_bias"], p["A_log"], p["D"],
         p["conv"], p["norm"]["scale"])
@@ -669,17 +748,31 @@ def mla_layer(p, x, *, cfg: ModelConfig, ctx: ParallelContext, mode: str,
     """`layers.mla_layer` on this rank's ``H / m`` heads (their ``wq_b``,
     ``wkv_b`` and ``wo`` columns and rows; the flash prefill on them). The
     latents (``wq_a``, ``wkv_a`` and both norms, replicated) are computed
-    whole and enter the rank's products through `copy_to`. The cache's
-    ``ckv``/``krope`` shards (their last dims over the model axis) take the
-    rank's part of the new rows; a decode gathers them whole (one
-    all-gather a layer a step), since the absorbed decode reads every
-    slot's whole latent."""
-    b, s, _ = x.shape
+    at the residual's layout (under sequence parallelism on the rank's
+    slice, their leaves' gradients summed over the model axis) and enter
+    the rank's products together (`enter`). The cache's ``ckv``/``krope``
+    shards (their last dims over the model axis) take the rank's part of
+    the new rows; a decode gathers them whole (one all-gather a layer a
+    step), since the absorbed decode reads every slot's whole latent."""
     ma = _ma(ctx)
-    positions = L.mla_positions(x, mode, pos, positions)
-    cq, ckv, krope = L.mla_latents(p, x, cfg=cfg, positions=positions)
-    q_nope, q_rope = L.mla_queries(PAR.copy_to(cq, ctx, ma), p["wq_b"],
-                                   cfg=cfg, positions=positions)
+    if ctx.seq_sharded:
+        b, s = x.shape[0], x.shape[1] * ctx.model_size
+        if positions is None:
+            positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+        lat_pos = PAR.local_view(positions, (None, ma), ctx)
+    else:
+        b, s, _ = x.shape
+        positions = lat_pos = L.mla_positions(x, mode, pos, positions)
+    wq_a, wkv_a, qn, kvn = seq_leaves(ctx, p["wq_a"], p["wkv_a"],
+                                      p["q_norm"]["scale"],
+                                      p["kv_norm"]["scale"])
+    lat = L.mla_latents({"wq_a": wq_a, "wkv_a": wkv_a,
+                         "q_norm": {"scale": qn}, "kv_norm": {"scale": kvn}},
+                        x, cfg=cfg, positions=lat_pos)
+    cq, ckv, krope = enter(torch.cat(lat, -1), ctx).split(
+        [t.shape[-1] for t in lat], -1)
+    q_nope, q_rope = L.mla_queries(cq, p["wq_b"], cfg=cfg,
+                                   positions=positions)
 
     def shard(t, key):
         if not _split_last(cspec, key):
@@ -709,9 +802,8 @@ def mla_layer(p, x, *, cfg: ModelConfig, ctx: ParallelContext, mode: str,
                 cache["ckv"][:, :s] = shard(ckv, "ckv")
                 cache["krope"][:, :s] = shard(krope, "krope")
             new_cache = cache
-        out = L.mla_prefill_attention(
-            p["wkv_b"], q_nope, q_rope, PAR.copy_to(ckv, ctx, ma),
-            PAR.copy_to(krope, ctx, ma), cfg=cfg)
+        out = L.mla_prefill_attention(p["wkv_b"], q_nope, q_rope, ckv,
+                                      krope, cfg=cfg)
     out = out.reshape(b, s, -1)
     return sum_partials(wide(out) @ wide(p["wo"]), ctx, x.dtype), new_cache
 
@@ -779,8 +871,9 @@ def layer_param_specs(cfg: ModelConfig, spec, ctx: ParallelContext):
 
 
 def replicated_layer(fn, p, x, cache, cspecs, pspecs, ctx: ParallelContext):
-    """Run ``fn(p_whole, x, cache_whole)`` with the parameters and cache
-    gathered over the model axis, then keep this rank's cache shard."""
+    """Run ``fn(p_whole, x, cache_whole)`` with the parameters, cache and
+    (under sequence parallelism) the sequence gathered over the model axis,
+    then keep this rank's cache shard and slice of the output."""
     ma = _ma(ctx)
     pw = PAR.gather_tree(p, pspecs, ctx, axes=ma)
     cw = None
@@ -788,7 +881,8 @@ def replicated_layer(fn, p, x, cache, cspecs, pspecs, ctx: ParallelContext):
         with torch.no_grad():
             cw = PAR.gather_tree(cache, cspecs, ctx, axes=ma) \
                 if cspecs is not None else cache
-    out, new_cache = fn(pw, x, cw)
+    out, new_cache = fn(pw, whole_seq(x, ctx), cw)
+    out = to_residual(out, ctx)
     if cache is not None and cspecs is not None and new_cache is not None:
         with torch.no_grad():
             for key, leaf in cache.items():

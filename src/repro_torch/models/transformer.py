@@ -213,8 +213,19 @@ def _apply_layer_sharded(spec: LayerSpec, p, x, *, cfg: ModelConfig,
     """`apply_layer` on local shards (`models/tp.py`). A Mamba-2, RG-LRU or
     MLA mixer runs on the rank's heads or channels (`tp.mixer_layer`), or,
     where they do not divide the model axis and the rules left its leaves
-    whole, as on one device."""
+    whole, as on one device.
+
+    Under sequence parallelism (``ctx.seq_sharded``) x is this rank's
+    slice of the sequence, and so is each sublayer's output (its
+    reduce-scatter): the residual adds and the norms run on the slice, the
+    JAX package's two `shard_activation` points (after the mixer and after
+    the MLP) being where the slice comes back. A cross-attention reads the
+    encoder's output whole."""
     from repro_torch.models import tp as TP
+    norms = [k for k in ("norm1", "norm_cross", "norm2") if k in p]
+    scales = TP.seq_leaves(ctx, *(p[k]["scale"] for k in norms))
+    p = dict(p, **{k: {"scale": t} for k, t in zip(norms, scales,
+                                                       strict=True)})
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
     if spec.kind in ("ssm", "rec", "mla"):
         if TP.mixer_sharded(spec.kind, cfg, ctx):
@@ -296,7 +307,8 @@ def run_stack(layers, x, *, cfg: ModelConfig, mode: str, cache=None,
     recomputes one layer at a time (the JAX package's nested remat). Under
     a mesh (``ctx``) the layers run on this rank's shards; a cache with
     ``specs`` (`model.init_cache` under a mesh) says how each layer's cache
-    is split."""
+    is split; with ``ctx.seq_sharded`` x (and so each checkpointed layer
+    input) is this rank's slice of the sequence."""
     specs = block_program(cfg).layers()
     aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     layer_remat = remat and mode == "train"

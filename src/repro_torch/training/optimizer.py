@@ -2,10 +2,12 @@
 
 The state mirrors the parameter tree with float32 moments whatever the
 parameters' dtype, and the update runs in float32 and is cast once to each
-parameter's dtype; weight decay applies to matrices only (``ndim >= 2``).
-``torch.optim.AdamW`` differs on both counts (it decays every tensor, and
-updates bf16 parameters in bf16), so the update is written out here. The
-parameters and moments are updated in place.
+parameter's dtype; weight decay applies to matrices only (``ndim >= 2``,
+counted as the JAX package holds the leaf: a model's train step passes
+`models.model.decayed_leaves`). ``torch.optim.AdamW`` differs on both
+counts (it decays every tensor, and updates bf16 parameters in bf16), so
+the update is written out here. The parameters and moments are updated in
+place.
 """
 from __future__ import annotations
 
@@ -74,14 +76,14 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(x.float().square().sum() for x in leaves(tree)))
 
 
-def _adamw_leaf(cfg: AdamWConfig, p, g, m, v, clip, lr, b1c, b2c, ndim):
+def _adamw_leaf(cfg: AdamWConfig, p, g, m, v, clip, lr, b1c, b2c, decay):
     """AdamW on one leaf (or its ZeRO chunk), in float32: updates the
     moments in place and returns the new values in float32."""
     g = g.float() * clip
     m.mul_(cfg.b1).add_((1.0 - cfg.b1) * g)
     v.mul_(cfg.b2).add_((1.0 - cfg.b2) * g.square())
     delta = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
-    if ndim >= 2:       # decoupled weight decay on matrices only
+    if decay:           # decoupled weight decay on matrices only
         delta = delta + cfg.weight_decay * p.float()
     return p.float() - lr * delta
 
@@ -103,11 +105,12 @@ def adamw_update_sharded(cfg: AdamWConfig, params, grads, state: OptState,
     lr = cosine_lr(cfg, step)
     b1c = 1.0 - cfg.b1 ** step
     b2c = 1.0 - cfg.b2 ** step
-    for p, g, m, v, dim in zip(leaves(params), leaves(grads),
-                               leaves(state.m), leaves(state.v),
-                               layout.dims, strict=True):
+    for p, g, m, v, dim, decay in zip(leaves(params), leaves(grads),
+                                      leaves(state.m), leaves(state.v),
+                                      layout.dims, layout.decayed,
+                                      strict=True):
         chunk = layout.chunk(p, dim)
-        new = _adamw_leaf(cfg, chunk, g, m, v, clip, lr, b1c, b2c, p.ndim)
+        new = _adamw_leaf(cfg, chunk, g, m, v, clip, lr, b1c, b2c, decay)
         if dim is not None:
             new = PAR.all_gather(new.to(p.dtype), ctx, ctx.batch_spec, dim)
         p.copy_(new)
@@ -116,19 +119,25 @@ def adamw_update_sharded(cfg: AdamWConfig, params, grads, state: OptState,
 
 
 @torch.no_grad()
-def adamw_update(cfg: AdamWConfig, params, grads, state: OptState):
+def adamw_update(cfg: AdamWConfig, params, grads, state: OptState,
+                 decayed=None):
     """One AdamW step on `params` in place. The steps count from 1; the
     gradients are clipped to a global norm of ``grad_clip``, and the norm
-    reported is the one before clipping. Returns (params, state', metrics
-    {"grad_norm" (a tensor), "lr"})."""
+    reported is the one before clipping. `decayed`: whether each leaf (in
+    `leaves` order) takes weight decay; by default those of two or more
+    dims. Returns (params, state', metrics {"grad_norm" (a tensor),
+    "lr"})."""
     gnorm = global_norm(grads)
     clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     step = state.step + 1
     lr = cosine_lr(cfg, step)
     b1c = 1.0 - cfg.b1 ** step
     b2c = 1.0 - cfg.b2 ** step
-    for p, g, m, v in zip(leaves(params), leaves(grads), leaves(state.m),
-                          leaves(state.v), strict=True):
-        p.copy_(_adamw_leaf(cfg, p, g, m, v, clip, lr, b1c, b2c, p.ndim))
+    flat = leaves(params)
+    if decayed is None:
+        decayed = [p.ndim >= 2 for p in flat]
+    for p, g, m, v, decay in zip(flat, leaves(grads), leaves(state.m),
+                                 leaves(state.v), decayed, strict=True):
+        p.copy_(_adamw_leaf(cfg, p, g, m, v, clip, lr, b1c, b2c, decay))
     return params, OptState(step, state.m, state.v), {
         "grad_norm": gnorm, "lr": lr}

@@ -40,10 +40,12 @@ class ZeroLayout:
     """Where each parameter's AdamW moments (and its reduced gradient) are
     cut over the data axes: the dim that `parallel.opt_state_shardings` adds
     the data axes to (None: held whole on every data rank), and how many
-    ranks hold each chunk (the global norm counts a chunk once)."""
+    ranks hold each chunk (the global norm counts a chunk once); and
+    which parameters take weight decay (`models.model.decayed_leaves`)."""
 
     def __init__(self, cfg: ModelConfig, ctx):
         shapes = M.params_shapes(cfg)
+        self.decayed = M.decayed_leaves(cfg)
         pspecs = _spec_leaves(PAR.param_specs(shapes, ctx))
         mspecs = _spec_leaves(PAR.opt_state_shardings(shapes, ctx))
         self.ctx = ctx
@@ -130,6 +132,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     if PAR.is_sharded(ctx):
         return _make_sharded_step(cfg, opt_cfg, microbatches, acc_dtype,
                                   ctx)
+    decayed = M.decayed_leaves(cfg)
 
     def grads_of(params, batch):
         shadow = tree_map(lambda t: t.detach().requires_grad_(True), params)
@@ -147,7 +150,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
             total, metrics, grads = accumulate(params, batch)
         with torch.profiler.record_function("train_step.adamw"):
             params, opt_state, opt_metrics = adamw_update(
-                opt_cfg, params, grads, opt_state)
+                opt_cfg, params, grads, opt_state, decayed)
         metrics = dict(metrics, **opt_metrics)
         metrics["total_loss"] = total
         return params, opt_state, metrics

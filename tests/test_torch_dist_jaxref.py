@@ -187,8 +187,72 @@ def families(inp):
     return out
 
 
+# sequence parallelism of the residual stream: (arch, config fields
+# replaced in the reduced float32 config, ParallelContext fields, sequence
+# length); the model axis of 4 divides every length but 18
+SEQ_CASES = {
+    "qwen2-vl-2b": ("qwen2-vl-2b", {}, {}, 16),
+    "mamba2-2.7b": ("mamba2-2.7b", {}, {}, 16),
+    "recurrentgemma-2b": ("recurrentgemma-2b", {}, {}, 16),
+    "minicpm3-4b": ("minicpm3-4b", {}, {}, 16),
+    "minicpm3-4b/6-heads": ("minicpm3-4b", {"n_heads": 6, "n_kv_heads": 6},
+                            {}, 16),
+    "deepseek-moe-16b/dense": ("deepseek-moe-16b", {}, {}, 16),
+    "deepseek-moe-16b/capacity": ("deepseek-moe-16b", {},
+                                  {"moe_dispatch": "capacity"}, 16),
+    "deepseek-moe-16b/ep_a2a": ("deepseek-moe-16b", {},
+                                {"moe_dispatch": "ep_a2a"}, 16),
+    "deepseek-moe-16b/expert-parallel": (
+        "deepseek-moe-16b", {}, {"moe_expert_parallel": True}, 16),
+    "deepseek-moe-16b/f-126": ("deepseek-moe-16b", {"moe_d_ff": 126}, {},
+                               16),
+    "whisper-base": ("whisper-base", {}, {}, 16),
+    "gemma-2b/s-18": ("gemma-2b", {}, {}, 18),
+    "deepseek-moe-16b/capacity/s-18": ("deepseek-moe-16b", {},
+                                       {"moe_dispatch": "capacity"}, 18),
+}
+SEQ_ROWS = 4
+SEQ_ADAMW_EPS = 1e-6
+
+
+def seq_config(name):
+    arch, kw, _, _ = SEQ_CASES[name]
+    return dataclasses.replace(f32(arch), **kw)
+
+
+def seq_train(inp):
+    """One sharded train step of each `SEQ_CASES` case whose batch IN.npz
+    holds (under "<case>/<input>") on the mesh: its loss, grad_norm and
+    parameters."""
+    from repro.training import AdamWConfig, init_opt_state, make_train_step
+    out = {}
+    for name, (_, _, ctx_kw, _) in SEQ_CASES.items():
+        if f"{name}/tokens" not in inp:
+            continue
+        cfg = seq_config(name)
+        mesh, ctx = mesh_ctx(**ctx_kw)
+        params = init_params(jax.random.key(0), cfg)
+        params = jax.device_put(params,
+                                param_shardings(params_shapes(cfg), ctx))
+        opt = init_opt_state(params)
+        step = jax.jit(make_train_step(
+            cfg, ctx, AdamWConfig(warmup_steps=1, eps=SEQ_ADAMW_EPS)))
+        batch = {}
+        for key, v in inp.items():
+            case, _, field = key.rpartition("/")
+            if case == name:
+                spec = P(None, "data") if field == "positions" else P("data")
+                batch[field] = jax.device_put(jnp.asarray(v),
+                                              NamedSharding(mesh, spec))
+        params, opt, metrics = step(params, opt, batch)
+        out[name] = {"loss": float(metrics["loss"]),
+                     "grad_norm": float(metrics["grad_norm"]),
+                     "params": jax.tree.map(np.asarray, params)}
+    return out
+
+
 CASES = {"cp_decode": cp_decode, "engine": engine, "ep_a2a": ep_a2a,
-         "train": train, "families": families}
+         "train": train, "families": families, "seq_train": seq_train}
 
 
 if __name__ == "__main__":

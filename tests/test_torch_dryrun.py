@@ -12,12 +12,16 @@ temporaries tens of GB). gemma-2b's vocabulary of 256000 splits over the
 model axis: its prefill runs the head on the last row and its loss is the
 vocabulary-parallel cross-entropy, so neither gathers float32 logits over
 every position (which took 129 and 46 GiB a rank, and 68 and 141 GiB of
-all-gathers).
+all-gathers). gemma-2b's and qwen2-vl-2b's ``train_4k`` split the residual
+stream over the sequence (sequence parallelism): their peaks fall below
+6.5 GiB (9.9 and 10.2 with the residual whole on every model rank), and no
+all-reduce is as large as a whole (B_local, S, D) float32 partial.
 """
 import math
 import resource
 
 import pytest
+import torch
 
 from repro_torch.configs import get_config
 from repro_torch.launch import dryrun
@@ -28,26 +32,45 @@ from repro_torch.training.optimizer import leaves
 FIELDS = {"arch", "shape", "mesh", "n_devices", "param_bytes",
           "opt_state_bytes", "batch_bytes", "cache_bytes",
           "argument_size_in_bytes", "temp_peak_bytes", "collective_bytes",
-          "collective_calls", "global_flops", "global_bytes_unfused"}
+          "collective_calls", "collective_largest", "global_flops",
+          "global_bytes_unfused"}
+
+
+PAIRS = [("gemma-2b", "decode_32k", False),
+         ("deepseek-moe-16b", "train_4k", False),
+         ("gemma-2b", "decode_32k", True),
+         ("gemma-2b", "prefill_32k", False),
+         ("gemma-2b", "train_4k", False),
+         ("qwen2-vl-2b", "train_4k", False)]
+# the float32 all-gather bytes of each pair's step, and its 3-D
+# reduce-scatters by element count
+F32_GATHERS, SCATTERS = {}, {}
 
 
 @pytest.fixture(scope="module")
 def reports():
     before = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    count = PAR._count
+    key = [None]
+
+    def counted(kind, out):
+        if kind == "all-gather" and out.dtype == torch.float32:
+            F32_GATHERS[key[0]] = F32_GATHERS.get(key[0], 0) \
+                + out.numel() * out.element_size()
+        if kind == "reduce-scatter" and out.dim() == 3:
+            n = SCATTERS[key[0]]
+            n[out.numel()] = n.get(out.numel(), 0) + 1
+        count(kind, out)
+    PAR._count = counted
     try:
-        out = {
-            ("gemma-2b", "decode_32k", False): dryrun.run_one(
-                "gemma-2b", "decode_32k", verbose=False),
-            ("deepseek-moe-16b", "train_4k", False): dryrun.run_one(
-                "deepseek-moe-16b", "train_4k", verbose=False),
-            ("gemma-2b", "decode_32k", True): dryrun.run_one(
-                "gemma-2b", "decode_32k", multi_pod=True, verbose=False),
-            ("gemma-2b", "prefill_32k", False): dryrun.run_one(
-                "gemma-2b", "prefill_32k", verbose=False),
-            ("gemma-2b", "train_4k", False): dryrun.run_one(
-                "gemma-2b", "train_4k", verbose=False),
-        }
+        out = {}
+        for arch, shape, multi_pod in PAIRS:
+            key[0] = (arch, shape, multi_pod)
+            F32_GATHERS[key[0]], SCATTERS[key[0]] = 0, {}
+            out[key[0]] = dryrun.run_one(arch, shape, multi_pod=multi_pod,
+                                         verbose=False)
     finally:
+        PAR._count = count
         dryrun.close()
     grown_kib = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss - before
     return out, grown_kib
@@ -65,11 +88,7 @@ def _local_param_bytes(arch, shape, names):
     return sum(leaves(sizes))
 
 
-@pytest.mark.parametrize("key", [("gemma-2b", "decode_32k", False),
-                                 ("deepseek-moe-16b", "train_4k", False),
-                                 ("gemma-2b", "decode_32k", True),
-                                 ("gemma-2b", "prefill_32k", False),
-                                 ("gemma-2b", "train_4k", False)])
+@pytest.mark.parametrize("key", PAIRS)
 def test_report_fields_and_parameter_bytes(reports, key):
     rep = reports[0][key]
     assert FIELDS <= set(rep), FIELDS - set(rep)
@@ -113,10 +132,36 @@ GIB = 2 ** 30
     ("prefill_32k", 4, 8), ("train_4k", 12, 20)])
 def test_head_gathers_no_logits_over_every_position(reports, shape,
                                                     peak_gib, gather_gib):
-    """A rank's peak and all-gather bytes, far below those of a head that
-    gathers (B, S, V) float32 logits (prefill 129 GiB and 68 GiB, train
-    46 GiB and 141 GiB) and above the sound ones (about 2.7 and 5.7, 9.9
-    and 16)."""
-    rep = reports[0][("gemma-2b", shape, False)]
+    """A rank's peak and float32 all-gather bytes, far below those of a
+    head that gathers (B, S, V) float32 logits (prefill 129 GiB and 68 GiB,
+    train 46 GiB and 141 GiB) and above the sound ones (about 2.3 and 0,
+    4.5 and 0). The sequence-parallel gathers of the residual (bfloat16:
+    15 and 44 GiB of all-gathers in all) replace all-reduces of float32
+    partials twice their size: all collectives together fall by about half
+    from what they were with the residual whole (42 and 89 GiB, to about
+    16 and 46)."""
+    key = ("gemma-2b", shape, False)
+    rep = reports[0][key]
     assert rep["temp_peak_bytes"] < peak_gib * GIB
-    assert rep["collective_bytes"]["all-gather"] < gather_gib * GIB
+    assert F32_GATHERS[key] < gather_gib * GIB
+    assert rep["collective_bytes"]["total"] < {"prefill_32k": 21,
+                                               "train_4k": 48}[shape] * GIB
+
+
+@pytest.mark.parametrize("arch", ["gemma-2b", "qwen2-vl-2b"])
+def test_train_splits_the_residual_over_the_sequence(reports, arch):
+    """Sequence parallelism in the ``train_4k`` step (B_local 16 x S 4096 on
+    a model axis of 16): the peak a rank is below 6.5 GiB, where the whole
+    residual saved for each layer's backward took it to 9.9 (gemma-2b) and
+    10.2 GiB (qwen2-vl-2b); every row-parallel sum is a reduce-scatter to
+    a residual slice (B_local, S/16, D), at least two a layer (ZeRO-1's
+    gradient reduce-scatters are not of that size), so no all-reduce is as
+    large as a whole (B_local, S, D) float32 partial."""
+    key = (arch, "train_4k", False)
+    rep = reports[0][key]
+    cfg = get_config(arch)
+    whole_partial = 16 * 4096 * cfg.d_model * 4
+    assert rep["temp_peak_bytes"] < 6.5 * GIB
+    assert rep["collective_largest"]["all-reduce"] < whole_partial
+    assert SCATTERS[key].get(16 * 4096 // 16 * cfg.d_model, 0) \
+        >= 2 * cfg.n_layers

@@ -264,6 +264,17 @@ def test_placements_and_context_helpers():
     torch.testing.assert_close(ctx.constrain(x.t(), None, "model"),
                                x.t()[:, 20:24])
     assert ctx.shard_activation(x) is x
+    # (B, S, D): this rank's slice of the sequence (model 5 of 16), where
+    # 16 divides S > 1; one token, or 20, stay whole
+    act = torch.arange(2 * 32 * 3.0).reshape(2, 32, 3)
+    torch.testing.assert_close(ctx.shard_activation(act), act[:, 10:12])
+    for s in (1, 20):
+        t = act[:, :s]
+        assert ctx.shard_activation(t) is t
+    assert ctx.seq_splits(32) and not ctx.seq_splits(20) \
+        and not ctx.seq_splits(1)
+    assert ctx.sequence_parallel(32).seq_sharded
+    assert not ctx.sequence_parallel(20).seq_sharded
     assert ctx.batch_size_divisor == 32 and ctx.model_size == 16
     assert ctx.model_spec_if(48) == "model" and ctx.model_spec_if(40) is None
     none = tpar.cpu_context()

@@ -30,6 +30,7 @@ from repro_torch.configs import get_config
 from repro_torch.launch import train as train_launcher
 from repro_torch.models import dummy_batch, init_params, loss_fn
 from repro_torch.models.convert import params_from_jax, params_to_jax
+from repro_torch.models.model import decayed_leaves
 from repro_torch.training import (
     AdamWConfig, DataConfig, SyntheticLM, adamw_update, init_opt_state,
     load_checkpoint, make_train_step, save_checkpoint, train,
@@ -100,6 +101,30 @@ def test_grad_clip_applies():
     _, _, metrics = adamw_update(cfg, params, {"w": torch.full((4,), 100.0)},
                                  init_opt_state(params))
     assert float(metrics["grad_norm"]) == 200.0  # reported before the clip
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "recurrentgemma-2b",
+                                  "deepseek-moe-16b", "whisper-base"])
+def test_weight_decay_takes_the_jax_layer_stacking(arch):
+    """A model's AdamW step decays the parameters the JAX step decays: with
+    zero gradients a step is the decay alone, and the JAX package decays
+    every leaf of a scanned superblock or encoder layer (stacked along a
+    layer dim there: a norm's scale, mamba2's dt_bias, A_log and D) but only
+    the matrices of an unscanned head or tail layer (deepseek's dense
+    first layer, recurrentgemma's (rec, rec) tail) and of the rest. Every
+    weight is moved by 1 (norm scales start at 0, where no decay shows)."""
+    jcfg, tcfg = config_pair(arch)
+    jp = jax.tree.map(lambda a: a + 1, weights_pair(jcfg, tcfg)[0])
+    tp = params_from_jax(numpy_tree(jp), tcfg, device="cpu")
+    ocfg = AdamWConfig(lr=1e-2, warmup_steps=0)
+    jp, _, _ = jax_adamw_update(ocfg, jp, jax.tree.map(jnp.zeros_like, jp),
+                                jax_init_opt_state(jp))
+    tp, _, _ = adamw_update(ocfg, tp, tree_map(torch.zeros_like, tp),
+                            init_opt_state(tp), decayed_leaves(tcfg))
+    want = leaves(params_from_jax(numpy_tree(jp), tcfg, device="cpu"))
+    for t, w in zip(leaves(tp), want, strict=True):
+        np.testing.assert_allclose(t.numpy(), w.numpy(), rtol=1e-6,
+                                   atol=1e-7)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -265,9 +290,9 @@ def test_microbatches_accumulate_in_float32():
     seen = []
     real = adamw_update
 
-    def spy(opt_cfg, p, grads, state):
+    def spy(opt_cfg, p, grads, state, *decayed):
         seen.extend(g.dtype for g in grads)
-        return real(opt_cfg, p, grads, state)
+        return real(opt_cfg, p, grads, state, *decayed)
 
     import repro_torch.training.train_loop as TL
     TL.adamw_update = spy
