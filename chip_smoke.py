@@ -175,6 +175,9 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM memory rate
 PEAK_OPS_PER_S = {"bfloat16": 989e12,   # dense tensor-core rate
                   "tf32": 494.7e12,     # dense TF32 tensor-core rate
                   "float32": 67e12}     # float32 outside the tensor cores
+# the units a flash row's operations are counted at: float32 flash runs on
+# the tensor cores in 3xTF32 (decode and paged rows keep the dtype's)
+RATE = {"float32": "tf32", "bfloat16": "bfloat16"}
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # the flash kernel's logsumexp against the plain one: bf16 scores come from
 # the tensor cores and exp2 in hardware, to about 1e-5 of their size
@@ -402,7 +405,9 @@ def check_flash(case, dev, causal: bool = True, lse: bool = False):
         + (4 * b * hq * sq if lse else 0)
     pairs = visible_pairs(sq, sk, window, q_offset) if causal else sq * sk
     n_ops = 4.0 * d * b * hq * pairs
-    bms, by = bound_ms(n_bytes, n_ops, dtype)
+    # float32 runs both products on the tensor cores in 3xTF32: its
+    # operations are counted at the TF32 rate, as the SSD kernel's are
+    bms, by = bound_ms(n_bytes, n_ops, RATE[dtype])
 
     def fn():
         return flash_attention(q, k, v, return_lse=lse, **kw)
@@ -484,7 +489,7 @@ def check_flash_grad(case, dev):
         + elem * (2 * b * hq * sq * d + 2 * b * hkv * sk * d) \
         + elem * (b * hq * sq * d + 2 * b * hkv * sk * d) + 8 * b * hq * sq
     n_ops = 14.0 * d * b * hq * pairs
-    bms, by = bound_ms(n_bytes, n_ops, dtype)
+    bms, by = bound_ms(n_bytes, n_ops, RATE[dtype])
     return dict(
         kernel="flash_attention", label=label, shape=dict(
             b=b, hq=hq, hkv=hkv, sq=sq, sk=sk, d=d, window=window,

@@ -23,7 +23,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("flash_attention.cu", "decode_attention.cu", "paged_attention.cu",
            "ssd_diag.cu")
 HEADERS = ("common.cuh", "decode_kernels.cuh", "flash_tiles.cuh", "split_kv.cuh",
-           "wgmma.cuh")
+           "tf32.cuh", "wgmma.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v")

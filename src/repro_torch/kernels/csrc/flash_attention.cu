@@ -57,176 +57,46 @@
 // src/repro/models/layers.py). It costs one store a row in the epilogue;
 // serving passes null and its launches do the same work as without it.
 //
-// float32: `flash_fwd_kernel`, products on the CUDA cores in f32, which
-// keeps the f32 contract of 2e-5 (TF32 tensor cores would not). One CTA
-// owns (batch, q-head, 16-row query tile) and walks the KV tiles in a loop,
-// with the same tile skipping and ragged-edge masks; Q in f32 and K/V in
-// dynamic shared memory, rows padded one 32-bit word against bank
-// conflicts.
+// float32: `flash_f32_kernel`, both products on the tensor cores in
+// float32 accuracy (3xTF32, `tf32.cuh`): each operand is split into TF32
+// hi and lo parts in registers as its fragment is loaded, and the
+// accumulator takes lo.hi + hi.lo + hi.hi, small terms first, which keeps
+// the f32 contract of 2e-5 (one TF32 product would not). The products are
+// mma.sync m16n8k8 TF32 with f32 accumulation, not wgmma: tf32 wgmma takes
+// K-major B operands only, so V would have to be transposed (and split)
+// into shared memory a tile at a time, where mma.sync reads each B
+// fragment as scalars a lane and needs no transpose; and the split runs in
+// registers either way. A CTA is four warps of 16 packed rows (64 rows:
+// the g q-heads of a kv-head packed as in the bf16 kernel, so each K/V
+// tile is read once for the group); a lane reads its Q and K fragments as
+// 16-byte vectors (two k-steps of 8 from 16 columns: the reduction's order
+// is permuted alike in both operands) and its V fragment as scalars, from
+// rows padded against bank conflicts. P goes from the S accumulator into
+// the A fragment of O += P.V where it lies (keys 2t and 2t + 1 serve as
+// the k-step's t and t + 4, and V's rows are read in that order). Q stays
+// in shared memory and is split again each tile (16 rows against the 2 x
+// 32 or 64 key rows of K and V). S is summed a 16-column block at a time
+// and the blocks added in f32: the tensor core rounds its sums toward
+// zero, and one accumulator over all of D 256 moved the logsumexp by
+// 5e-6, which the FA2 backward turned into a 3.6e-5 gradient error (on an
+// NVIDIA H100 80GB HBM3 at 700 W). K/V tiles of 64 keys (32 at D >= 96, so
+// that two CTAs fit an SM at D 96 and 128, one at D 256: 206 KB) go
+// through a two-stage cp.async ring, K apart from V, with the bf16
+// kernel's tile skipping, element masks only on boundary tiles, and
+// longest CTAs first. At D = 256 the O accumulator is 128 registers a
+// thread; ptxas prints the count. Operands whose pointers or strides are
+// not 16-byte aligned are copied 4 bytes at a time. On an NVIDIA H100 80GB
+// HBM3 at 700 W this took the long float32 rows from the CUDA-core
+// design's 3334 / 2175 / 1619 µs to 845 / 503 / 427 µs (minicpm3-4b 2048²
+// D 96, gemma3-12b local 1024² D 256, whisper-base's encoder): under SDPA
+// and the plain version, at 3.5-8.8% of the TF32 bound.
 #include "common.cuh"
 #include "flash_tiles.cuh"
+#include "tf32.cuh"
 #include "wgmma.cuh"
 
 namespace repro {
 namespace {
-
-constexpr int kBQ = 16;                      // query rows per CTA
-constexpr int kBK = 64;                      // keys per KV tile
-constexpr int kThreads = 128;
-constexpr int kRowThreads = kThreads / kBQ;  // 8 consecutive lanes share a row
-
-template <typename T, int D>
-struct FlashSmem {
-  static constexpr int kPad = 4 / sizeof(T);  // one 32-bit word per row
-  static constexpr int kQStride = D + 1;
-  static constexpr int kKVStride = D + kPad;
-  static constexpr int kPStride = kBK + 1;
-  static constexpr size_t kBytes = sizeof(float) * kBQ * kQStride
-                                   + 2 * sizeof(T) * kBK * kKVStride
-                                   + sizeof(float) * kBQ * kPStride;
-};
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse, Strides qs,
-                 Strides ks, Strides vs, Strides os, int group, int sq, int sk,
-                 int causal, int window, int q_offset, float scale) {
-  using L = FlashSmem<T, D>;
-  constexpr int kCols = D / kRowThreads;    // output columns per thread
-  constexpr int kKeys = kBK / kRowThreads;  // scores per thread per tile
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* q_s = reinterpret_cast<float*>(smem_raw);
-  T* k_s = reinterpret_cast<T*>(q_s + kBQ * L::kQStride);
-  T* v_s = k_s + kBK * L::kKVStride;
-  float* p_s = reinterpret_cast<float*>(v_s + kBK * L::kKVStride);
-
-  const int tid = threadIdx.x;
-  const int row = tid / kRowThreads;
-  const int sub = tid % kRowThreads;
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = h / group;
-
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* kb = k + b * ks.b + hk * ks.h;
-  const T* vb = v + b * vs.b + hk * vs.h;
-  T* ob = o + b * os.b + h * os.h;
-
-  for (int i = tid; i < kBQ * D; i += kThreads) {
-    const int r = i / D, c = i % D;
-    q_s[r * L::kQStride + c] =
-        (q0 + r < sq) ? to_f32(qb[(q0 + r) * qs.s + c]) : 0.f;
-  }
-
-  // the keys that some row of this tile may see; whole tiles outside are
-  // skipped, which changes nothing because each causal row keeps its own key
-  const int q_last = min(q0 + kBQ, sq) - 1;
-  int k_begin = 0;
-  int k_end = sk;
-  if (causal) k_end = min(sk, q_last + q_offset + 1);
-  if (window > 0) k_begin = max(0, q0 + q_offset - window + 1);
-  k_begin = (k_begin / kBK) * kBK;
-
-  const int qpos = q0 + row + q_offset;
-  float m_run = kNegInf;
-  float l_run = 0.f;
-  float acc[kCols];
-#pragma unroll
-  for (int j = 0; j < kCols; ++j) acc[j] = 0.f;
-
-  for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
-    __syncthreads();  // the previous tile is consumed; q_s is visible
-    for (int i = tid; i < kBK * D; i += kThreads) {
-      const int r = i / D, c = i % D;
-      const bool in = k0 + r < sk;
-      k_s[r * L::kKVStride + c] = in ? kb[(k0 + r) * ks.s + c] : from_f32<T>(0.f);
-      v_s[r * L::kKVStride + c] = in ? vb[(k0 + r) * vs.s + c] : from_f32<T>(0.f);
-    }
-    __syncthreads();
-
-    // scores of this thread's keys sub, sub+8, ... against its query row
-    float s[kKeys];
-#pragma unroll
-    for (int j = 0; j < kKeys; ++j) s[j] = 0.f;
-    const float* qrow = q_s + row * L::kQStride;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float qd = qrow[d];
-#pragma unroll
-      for (int j = 0; j < kKeys; ++j)
-        s[j] += qd * to_f32(k_s[(sub + j * kRowThreads) * L::kKVStride + d]);
-    }
-
-    float m_tile = kNegInf;
-#pragma unroll
-    for (int j = 0; j < kKeys; ++j) {
-      const int kpos = k0 + sub + j * kRowThreads;
-      const bool seen = (!causal || kpos <= qpos) && (window <= 0 || kpos > qpos - window);
-      // keys past the end do not exist: they get no weight at all
-      s[j] = (kpos >= sk) ? -INFINITY : (seen ? s[j] * scale : kNegInf);
-      m_tile = fmaxf(m_tile, s[j]);
-    }
-#pragma unroll
-    for (int off = kRowThreads / 2; off > 0; off >>= 1)
-      m_tile = fmaxf(m_tile, __shfl_xor_sync(0xffffffffu, m_tile, off));
-    const float m_new = fmaxf(m_run, m_tile);
-    const float alpha = expf(m_run - m_new);
-
-    float l_tile = 0.f;
-#pragma unroll
-    for (int j = 0; j < kKeys; ++j) {
-      const float p = expf(s[j] - m_new);
-      l_tile += p;
-      p_s[row * L::kPStride + sub + j * kRowThreads] = p;
-    }
-#pragma unroll
-    for (int off = kRowThreads / 2; off > 0; off >>= 1)
-      l_tile += __shfl_xor_sync(0xffffffffu, l_tile, off);
-    l_run = l_run * alpha + l_tile;
-    m_run = m_new;
-    __syncwarp();  // a row's probabilities are written and read by one warp
-
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) acc[j] *= alpha;
-    const float* prow = p_s + row * L::kPStride;
-    for (int c = 0; c < kBK; ++c) {
-      const float p = prow[c];
-      const T* vrow = v_s + c * L::kKVStride + sub;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) acc[j] += p * to_f32(vrow[j * kRowThreads]);
-    }
-  }
-
-  if (q0 + row < sq) {
-    const float denom = fmaxf(l_run, 1e-30f);
-    T* orow = ob + (q0 + row) * os.s + sub;
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) orow[j * kRowThreads] = from_f32<T>(acc[j] / denom);
-    // the row's logsumexp, for the backward: (B, Hq, Sq) float32
-    if (lse != nullptr && sub == 0)
-      lse[(static_cast<int64_t>(b) * gridDim.y + h) * sq + q0 + row] = m_run + logf(denom);
-  }
-}
-
-template <typename T, int D>
-cudaError_t launch_flash(const void* q, const void* k, const void* v, void* o,
-                         float* lse, const Strides* st, int b, int hq, int hkv, int sq,
-                         int sk, int causal, int window, int q_offset,
-                         float scale, cudaStream_t stream) {
-  constexpr size_t smem = FlashSmem<T, D>::kBytes;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (attr != cudaSuccess) return attr;
-  const dim3 grid((sq + kBQ - 1) / kBQ, hq, b);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, st[0], st[1], st[2], st[3], hq / hkv, sq, sk, causal,
-      window, q_offset, scale);
-  return cudaGetLastError();
-}
 
 // ---------------------------------------------------------------------------
 // bf16: tensor cores
@@ -742,20 +612,423 @@ cudaError_t selftest(const void* q, const void* k, const void* v, float* s, floa
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// float32: 3xTF32 on the tensor cores (mma.sync m16n8k8)
+// ---------------------------------------------------------------------------
+
+namespace f32tc {
+
+using namespace hopper;
+
+constexpr int kRows = 64;  // packed query rows a CTA: four warps of 16
+constexpr int kThreads = 128;
+
+// Keys a K/V tile: 64, or 32 at D >= 96, where two 64-key stages would
+// leave room for one CTA an SM (D 96 and 128 take two at 32 keys; at D 256
+// one CTA takes 206 KB).
+template <int D>
+__host__ __device__ constexpr int key_tile() {
+  return D >= 96 ? 32 : 64;
+}
+
+// Shared memory, in floats: Q (64 rows), then two stages of K and V.
+// Row strides: a warp reads Q and K rows as 16-byte vectors, rows g and
+// g + 1 in each quarter-warp, so their stride is 16 words mod 32 (D 48's
+// already is); it reads V as scalars, key 2t at column g in lane (g, t),
+// so its stride is 4 words mod 16 (two V rows are 8 words mod 32 apart):
+// no bank is read twice in either.
+template <int D>
+struct Smem {
+  static constexpr int kBK = key_tile<D>();
+  static constexpr int kLdQK = D % 32 == 0 ? D + 16 : D;
+  static constexpr int kLdV = D + 4;
+  static_assert(kLdQK % 32 == 16 && kLdV % 16 == 4, "bank-conflict-free strides");
+  static constexpr int kQ = kRows * kLdQK;
+  static constexpr int kK = kBK * kLdQK;
+  static constexpr int kStage = kK + kBK * kLdV;
+  static constexpr size_t kBytes = sizeof(float) * (kQ + 2 * kStage);
+};
+
+// x as TF32 hi and lo: hi = tf32(x), lo = x - hi with its low 13 bits
+// left as they are: the tensor core reads a TF32 operand's sign, exponent
+// and 10 high mantissa bits and drops the rest, so lo needs no rounding of
+// its own (it is truncated there where `split` rounds it, a difference of
+// at most 2^-22 of x)
+__device__ __forceinline__ uint2 split_op(float x) {
+  const uint32_t hi = tf32(x);
+  return make_uint2(hi, __float_as_uint(x - __uint_as_float(hi)));
+}
+__device__ __forceinline__ void split_a(float a0, float a1, float a2, float a3, uint32_t (&hi)[4],
+                                        uint32_t (&lo)[4]) {
+  const float a[4] = {a0, a1, a2, a3};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const uint2 r = split_op(a[e]);
+    hi[e] = r.x;
+    lo[e] = r.y;
+  }
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// ROWS rows of a (seq, D) operand from row `row0`, row r at src + r *
+// stride, into shared rows of LD floats; rows at or past `n` are
+// zero-filled. 16-byte copies when `vec` (pointers and strides 16-byte
+// aligned), else 4-byte ones.
+template <int D, int LD, int ROWS>
+__device__ __forceinline__ void load_rows(float* dst, const float* src, int64_t stride, int row0,
+                                          int n, bool vec, int tid) {
+  const uint32_t base = smem_addr(dst);
+  if (vec) {
+    constexpr int kChunks = D / 4;
+    static_assert(ROWS * kChunks % kThreads == 0, "whole passes");
+#pragma unroll 4
+    for (int k = 0; k < ROWS * kChunks / kThreads; ++k) {
+      const int i = tid + k * kThreads;
+      const int r = i / kChunks, c = i % kChunks;
+      const bool in = row0 + r < n;
+      cp_async16(base + 4 * (r * LD + 4 * c), in ? src + (row0 + r) * stride + 4 * c : src, in);
+    }
+  } else {
+    for (int i = tid; i < ROWS * D; i += kThreads) {
+      const int r = i / D, c = i % D;
+      const bool in = row0 + r < n;
+      cp_async4(base + 4 * (r * LD + c), in ? src + (row0 + r) * stride + c : src, in);
+    }
+  }
+}
+
+// The CTA's packed Q rows [r0, r0 + kRows) into shared rows of LD floats;
+// rows at or past `rows_total` are zero-filled. Row r is q-head r / Sq,
+// query r % Sq.
+template <int D, int LD>
+__device__ __forceinline__ void load_q(float* dst, const float* qb, Strides qs,
+                                       const tiles::FastDiv& sq, int r0, int rows_total, bool vec,
+                                       int tid) {
+  const uint32_t base = smem_addr(dst);
+  auto row = [&](int r) {  // packed row r0 + r, or null past the last
+    const int pr = r0 + r;
+    const int head = sq(pr);
+    return pr < rows_total ? qb + head * qs.h + (pr - head * sq.d) * qs.s : nullptr;
+  };
+  if (vec) {
+    constexpr int kChunks = D / 4;
+#pragma unroll 2
+    for (int k = 0; k < kRows * kChunks / kThreads; ++k) {
+      const int i = tid + k * kThreads;
+      const int r = i / kChunks, c = 4 * (i % kChunks);
+      const float* p = row(r);
+      cp_async16(base + 4 * (r * LD + c), p ? p + c : qb, p != nullptr);
+    }
+  } else {
+    for (int i = tid; i < kRows * D; i += kThreads) {
+      const int r = i / D, c = i % D;
+      const float* p = row(r);
+      cp_async4(base + 4 * (r * LD + c), p ? p + c : qb, p != nullptr);
+    }
+  }
+}
+
+// Warp w owns the CTA's packed rows 16w .. 16w + 15; lane (g, t) = (lane /
+// 4, lane % 4) holds rows g and g + 8 of them, as the m16n8k8 fragments do.
+template <int D>
+__global__ void __launch_bounds__(kThreads, D >= 256 ? 1 : 2)
+flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+                 Strides qs, Strides ks, Strides vs, Strides os, int group, tiles::FastDiv sq,
+                 int sk, int causal, int window, int q_offset, float scale_log2, int n_tiles,
+                 int vec) {
+  using L = Smem<D>;
+  constexpr int kBK = L::kBK;
+  constexpr int kNT = kBK / 8;              // n-tiles of S: 8 keys each
+  constexpr int kDT = D / 8;                // n-tiles of O: 8 columns each
+  constexpr int kSC = D >= 256 ? 2 : 4;     // S n-tiles a pass of Q.K^T
+  constexpr int kC = kDT % 4 == 0 ? 4 : 2;  // O n-tiles a pass of P.V
+  extern __shared__ __align__(16) float f32_smem[];
+  float* const q_s = f32_smem;
+  float* const kv_s = f32_smem + L::kQ;  // stage s: K at s * kStage, V at + kK
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int tile = n_tiles - 1 - blockIdx.x;  // the longest causal tiles first
+  const int hk = blockIdx.y;
+  const int b = blockIdx.z;
+  const int rows_total = group * sq.d;
+  const int r0 = tile * kRows;
+
+  const float* qb = q + b * qs.b + hk * group * qs.h;
+  const float* kb = k + b * ks.b + hk * ks.h;
+  const float* vb = v + b * vs.b + hk * vs.h;
+
+  // the keys the CTA loads, and the keys this warp's rows may see
+  const tiles::RowSpan cta_rows =
+      tiles::packed_query_span(r0, min(r0 + kRows, rows_total), sq);
+  const tiles::KeySpan cta_keys = tiles::key_span(cta_rows, sk, causal, window, q_offset, kBK);
+  const int w0 = r0 + 16 * warp;
+  const tiles::RowSpan w_rows = tiles::packed_query_span(w0, min(w0 + 16, rows_total), sq);
+  const tiles::KeySpan w_keys = tiles::key_span(w_rows, sk, causal, window, q_offset, kBK);
+
+  int qpos[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int pr = w0 + g + 8 * i;
+    qpos[i] = (pr < rows_total ? pr - sq(pr) * sq.d : 0) + q_offset;
+  }
+
+  float acc[kDT][4];
+#pragma unroll
+  for (int n = 0; n < kDT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY};  // log2 units
+  float l_run[2] = {0.f, 0.f};
+  bool first = true;  // no tile processed yet (warp-uniform)
+
+  // cp.async groups: Q with K of tile 0, then V of tile 0, then K and V of
+  // each next tile apart, so S = Q.K^T starts before V has arrived
+  const int n_kv = (cta_keys.end - cta_keys.begin + kBK - 1) / kBK;
+  load_q<D, L::kLdQK>(q_s, qb, qs, sq, r0, rows_total, vec, tid);
+  if (n_kv > 0) load_rows<D, L::kLdQK, kBK>(kv_s, kb, ks.s, cta_keys.begin, sk, vec, tid);
+  cp_async_commit();
+  if (n_kv > 0) load_rows<D, L::kLdV, kBK>(kv_s + L::kK, vb, vs.s, cta_keys.begin, sk, vec, tid);
+  cp_async_commit();
+
+  const float* q_row = q_s + (16 * warp + g) * L::kLdQK + 4 * t;
+  for (int it = 0; it < n_kv; ++it) {
+    const int k0 = cta_keys.begin + it * kBK;
+    const float* k_s = kv_s + (it & 1) * L::kStage;
+    const float* v_s = k_s + L::kK;
+    const bool more = it + 1 < n_kv;
+    if (more) {
+      float* nxt = kv_s + ((it + 1) & 1) * L::kStage;
+      load_rows<D, L::kLdQK, kBK>(nxt, kb, ks.s, k0 + kBK, sk, vec, tid);
+      cp_async_commit();
+      load_rows<D, L::kLdV, kBK>(nxt + L::kK, vb, vs.s, k0 + kBK, sk, vec, tid);
+      cp_async_commit();
+    }
+    // K of this tile (V of this tile and the next tile may fly)
+    if (more) cp_async_wait<3>(); else cp_async_wait<1>();
+    __syncthreads();
+
+    const bool mine = k0 < w_keys.end && k0 + kBK > w_keys.begin;  // warp-uniform
+    float s[kNT][4];
+    if (mine) {
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+      // S = Q.K^T, 16 columns of D a pass as two k-steps of 8. Within a
+      // pass lane t reads columns 4t .. 4t + 3 of its rows as one vector:
+      // k-step 0 takes columns 4t and 4t + 1 as its k = t and t + 4, k-step
+      // 1 columns 4t + 2 and 4t + 3 (the order of the reduction is free, as
+      // long as both operands keep the same one). Each pass sums into a
+      // zeroed block, the four small products first and the two large ones
+      // last, and the block is added to S in f32: the tensor core rounds
+      // its sums toward zero, and a block's sum is a quarter of a row's
+      // (sqrt of 16 columns of D 256), so S keeps the float32 accuracy that
+      // the logsumexp (and the backward through it) needs
+#pragma unroll
+      for (int dg = 0; dg < D / 16; ++dg) {
+        const float4 qa = *reinterpret_cast<const float4*>(q_row + 16 * dg);
+        const float4 qc = *reinterpret_cast<const float4*>(q_row + 8 * L::kLdQK + 16 * dg);
+        uint32_t ah[2][4], al[2][4];
+        split_a(qa.x, qc.x, qa.y, qc.y, ah[0], al[0]);
+        split_a(qa.z, qc.z, qa.w, qc.w, ah[1], al[1]);
+#pragma unroll
+        for (int n0 = 0; n0 < kNT; n0 += kSC) {
+          uint2 b0[2][kSC], b1[2][kSC];
+#pragma unroll
+          for (int c = 0; c < kSC; ++c) {
+            const float4 kv = *reinterpret_cast<const float4*>(
+                k_s + (8 * (n0 + c) + g) * L::kLdQK + 16 * dg + 4 * t);
+            b0[0][c] = split_op(kv.x);
+            b1[0][c] = split_op(kv.y);
+            b0[1][c] = split_op(kv.z);
+            b1[1][c] = split_op(kv.w);
+          }
+          float blk[kSC][4];
+#pragma unroll
+          for (int c = 0; c < kSC; ++c)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) blk[c][e] = 0.f;
+#pragma unroll
+          for (int ks = 0; ks < 2; ++ks) {
+#pragma unroll
+            for (int c = 0; c < kSC; ++c) mma_tf32(blk[c], al[ks], b0[ks][c].x, b1[ks][c].x);
+#pragma unroll
+            for (int c = 0; c < kSC; ++c) mma_tf32(blk[c], ah[ks], b0[ks][c].y, b1[ks][c].y);
+          }
+#pragma unroll
+          for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+            for (int c = 0; c < kSC; ++c) mma_tf32(blk[c], ah[ks], b0[ks][c].x, b1[ks][c].x);
+#pragma unroll
+          for (int c = 0; c < kSC; ++c)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[n0 + c][e] += blk[c][e];
+        }
+      }
+
+      // s stays raw (Q.K^T); a key a row may not see holds the finite mask
+      // kNegInf (its weight is exp(kNegInf - m), the reference's), a key past
+      // sk holds -inf (no weight at all)
+      const bool masked = tiles::tile_needs_mask(k0, kBK, w_rows, sk, causal, window, q_offset);
+      float m_tile[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[j][e];
+          float xm = x * scale_log2;
+          if (masked) {
+            const int kpos = k0 + 8 * j + 2 * t + (e & 1);
+            if (kpos >= sk) {
+              x = xm = -INFINITY;
+            } else if (!tiles::visible(kpos, qpos[e >> 1], causal, window)) {
+              x = xm = kNegInf;
+            }
+          }
+          s[j][e] = x;
+          m_tile[e >> 1] = fmaxf(m_tile[e >> 1], xm);
+        }
+      float alpha[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        m_tile[i] = fmaxf(m_tile[i], __shfl_xor_sync(0xffffffffu, m_tile[i], 1));
+        m_tile[i] = fmaxf(m_tile[i], __shfl_xor_sync(0xffffffffu, m_tile[i], 2));
+        // a processed tile holds a key below sk, so m_new is finite
+        const float m_new = fmaxf(m_run[i], m_tile[i]);
+        alpha[i] = tc::ex2(m_run[i] - m_new);
+        m_run[i] = m_new;
+        l_run[i] *= alpha[i];
+      }
+      // p = 2^(s * scale_log2 - m) with one rounding (a fused multiply-add)
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x = s[j][e];
+          const float m = m_run[e >> 1];
+          const float p = (masked && x == kNegInf) ? tc::ex2(kNegInf - m)
+                                                   : tc::ex2(fmaf(x, scale_log2, -m));
+          s[j][e] = p;
+          l_run[e >> 1] += p;
+        }
+      if (!first) {  // before the first tile acc is zero
+#pragma unroll
+        for (int n = 0; n < kDT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+      }
+      first = false;
+    }
+
+    if (more) cp_async_wait<2>(); else cp_async_wait<0>();  // V of this tile
+    __syncthreads();
+
+    if (mine) {
+      // O += P.V, a k-step of 8 keys at a time. The accumulator of S holds
+      // keys 2t and 2t + 1 of each 8 in lane t, which serve as the A
+      // fragment's k = t and t + 4 where they lie; V's rows follow: b0 is
+      // key 2t, b1 key 2t + 1, at column g of each n-tile
+#pragma unroll
+      for (int kk = 0; kk < kNT; ++kk) {
+        uint32_t ah[4], al[4];
+        split_a(s[kk][0], s[kk][2], s[kk][1], s[kk][3], ah, al);
+        const float* v_row = v_s + (8 * kk + 2 * t) * L::kLdV + g;
+#pragma unroll
+        for (int n0 = 0; n0 < kDT; n0 += kC) {
+          uint2 b0[kC], b1[kC];
+#pragma unroll
+          for (int c = 0; c < kC; ++c) {
+            b0[c] = split_op(v_row[8 * (n0 + c)]);
+            b1[c] = split_op(v_row[L::kLdV + 8 * (n0 + c)]);
+          }
+          mma3<kC>(acc, ah, al, b0, b1, n0);
+        }
+      }
+    }
+    __syncthreads();  // the stage is consumed before it is refilled
+  }
+  if (n_kv == 0) cp_async_wait<0>();  // no tile ran: the Q copies may still be landing
+
+  // the quad's partial row sums
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 1);
+    l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 2);
+  }
+  // the rows' logsumexp for the backward, as the bf16 kernel writes it
+  if (lse != nullptr && t == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int pr = w0 + g + 8 * i;
+      if (pr < rows_total) {
+        const float m = m_run[i] == kNegInf ? kNegInf : m_run[i] * tc::kLn2;
+        lse[(static_cast<int64_t>(b) * gridDim.y + hk) * rows_total + pr] =
+            m + logf(fmaxf(l_run[i], 1e-30f));
+      }
+    }
+  }
+  // lane t writes columns 2t and 2t + 1 of each n-tile of its two rows
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int pr = w0 + g + 8 * i;
+    if (pr >= rows_total) continue;
+    const int head = sq(pr);
+    float* orow = o + b * os.b + (hk * group + head) * os.h + (pr - head * sq.d) * os.s + 2 * t;
+    const float denom = fmaxf(l_run[i], 1e-30f);
+#pragma unroll
+    for (int n = 0; n < kDT; ++n) {
+      const float x = acc[n][2 * i] / denom, y = acc[n][2 * i + 1] / denom;
+      if (vec) {
+        *reinterpret_cast<float2*>(orow + 8 * n) = make_float2(x, y);
+      } else {
+        orow[8 * n] = x;
+        orow[8 * n + 1] = y;
+      }
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
+                   const Strides* st, int b, int hq, int hkv, int sq, int sk, int causal,
+                   int window, int q_offset, float scale, bool vec, cudaStream_t stream) {
+  using L = Smem<D>;
+  static const cudaError_t attr = tc::allow_smem(flash_f32_kernel<D>, L::kBytes);
+  if (attr != cudaSuccess) return attr;
+  const int group = hq / hkv;
+  const int n_tiles = (group * sq + kRows - 1) / kRows;
+  const dim3 grid(n_tiles, hkv, b);
+  flash_f32_kernel<D><<<grid, kThreads, L::kBytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), lse, st[0], st[1], st[2], st[3], group, tiles::FastDiv(sq), sk,
+      causal, window, q_offset, scale * tc::kLog2e, n_tiles, vec ? 1 : 0);
+  return cudaGetLastError();
+}
+
+}  // namespace f32tc
+
 cudaError_t dispatch_f32(int d, const void* q, const void* k, const void* v, void* o,
                          float* lse, const Strides* st, int b, int hq, int hkv, int sq, int sk, int causal,
-                         int window, int q_offset, float scale, cudaStream_t stream) {
+                         int window, int q_offset, float scale, bool vec, cudaStream_t stream) {
   switch (d) {
     case 48:
-      return launch_flash<float, 48>(q, k, v, o, lse, st, b, hq, hkv, sq, sk, causal, window, q_offset, scale, stream);
+      return f32tc::launch<48>(q, k, v, o, lse, st, b, hq, hkv, sq, sk, causal, window, q_offset, scale, vec, stream);
     case 64:
-      return launch_flash<float, 64>(q, k, v, o, lse, st, b, hq, hkv, sq, sk, causal, window, q_offset, scale, stream);
+      return f32tc::launch<64>(q, k, v, o, lse, st, b, hq, hkv, sq, sk, causal, window, q_offset, scale, vec, stream);
     case 96:
-      return launch_flash<float, 96>(q, k, v, o, lse, st, b, hq, hkv, sq, sk, causal, window, q_offset, scale, stream);
+      return f32tc::launch<96>(q, k, v, o, lse, st, b, hq, hkv, sq, sk, causal, window, q_offset, scale, vec, stream);
     case 128:
-      return launch_flash<float, 128>(q, k, v, o, lse, st, b, hq, hkv, sq, sk, causal, window, q_offset, scale, stream);
+      return f32tc::launch<128>(q, k, v, o, lse, st, b, hq, hkv, sq, sk, causal, window, q_offset, scale, vec, stream);
     case 256:
-      return launch_flash<float, 256>(q, k, v, o, lse, st, b, hq, hkv, sq, sk, causal, window, q_offset, scale, stream);
+      return f32tc::launch<256>(q, k, v, o, lse, st, b, hq, hkv, sq, sk, causal, window, q_offset, scale, vec, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -784,8 +1057,9 @@ cudaError_t dispatch_bf16(int d, const void* q, const void* k, const void* v, vo
 }  // namespace repro
 
 // strides: 12 element strides, (batch, head, seq) for q, k, v and o in turn.
-// dtype: 0 float32 (CUDA-core kernel), 1 bfloat16 (tensor-core kernel; the
-// pointers and the strides must be 16-byte aligned). lse: null, or a
+// dtype: 0 float32 (3xTF32 mma.sync kernel; 16-byte copies where the
+// pointers and strides allow, else 4-byte ones), 1 bfloat16 (wgmma kernel;
+// the pointers and the strides must be 16-byte aligned). lse: null, or a
 // contiguous (b, hq, sq) float32 buffer that takes each row's logsumexp of
 // scale * q.k (natural log), which the backward reads. Returns the launch's
 // cudaError_t.
@@ -802,8 +1076,15 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
                          {strides[9], strides[10], strides[11]}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* lse_f = static_cast<float*>(lse);
-  if (dtype == 0)
-    return (int)repro::dispatch_f32(d, q, k, v, o, lse_f, st, b, hq, hkv, sq, sk, causal, window, q_offset, scale, s);
+  if (dtype == 0) {
+    // 16-byte copies where every pointer and every stride of an axis
+    // longer than one allow them, else 4-byte ones
+    const int64_t sizes[12] = {b, hq, sq, b, hkv, sk, b, hkv, sk, b, hq, sq};
+    auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+    bool vec = aligned(q) && aligned(k) && aligned(v) && aligned(o);
+    for (int i = 0; i < 12; ++i) vec = vec && (sizes[i] <= 1 || strides[i] % 4 == 0);
+    return (int)repro::dispatch_f32(d, q, k, v, o, lse_f, st, b, hq, hkv, sq, sk, causal, window, q_offset, scale, vec, s);
+  }
   if (dtype == 1)
     return (int)repro::dispatch_bf16(d, q, k, v, o, lse_f, st, b, hq, hkv, sq, sk, causal, window, q_offset, scale, s);
   return (int)cudaErrorInvalidValue;

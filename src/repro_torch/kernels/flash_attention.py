@@ -2,8 +2,10 @@
 ``csrc/flash_attention.cu``.
 
 On a CUDA tensor it launches the hand-written kernel for its dtype, or
-raises: bfloat16 runs the tensor-core (wgmma) kernel, float32 the CUDA-core
-kernel that keeps the f32 tolerance. On a CPU tensor it runs the plain
+raises: bfloat16 runs the wgmma kernel, float32 the mma.sync kernel whose
+products are three TF32 products each (3xTF32), which keeps the f32
+tolerance on the tensor cores; `ref.flash_attention_tiled_ref` is that
+kernel's order of work on the CPU. On a CPU tensor it runs the plain
 version in ``ref.py``. ``flash_attention.launches`` counts the kernel's
 launches.
 
@@ -72,8 +74,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     Any strides whose last axis is contiguous are taken as they are, so
     views of (B, S, H, D) model tensors need no copy. D must be 48, 64, 96,
     128 or 256 (the bf16 kernel pads 48 and 96 to whole 64-column tiles in
-    shared memory, never in device memory) and Hq a multiple of Hkv. In bfloat16 the kernel copies 16-byte
-    chunks, so pointers and strides must be 16-byte aligned.
+    shared memory, never in device memory) and Hq a multiple of Hkv. In
+    bfloat16 the kernel copies 16-byte chunks, so pointers and strides must
+    be 16-byte aligned; in float32 it copies 16-byte chunks where they are
+    and 4-byte ones where not.
     """
     check_last_contiguous(q=q, k=k, v=v)
     if q.device.type in ("cpu", "meta"):

@@ -6,10 +6,10 @@ float32 softmax; the SSD one every (query, key) pair of a chunk at once. The
 CPU tests hold them against the JAX oracles, `chip_smoke.py` holds each
 kernel against them on the card, and `repro_torch.kernels.ops` sends a
 CPU tensor here. Beside them, plain versions of the kernels' own
-decompositions (split-KV decode, dense and paged; the SSD block in tiles
-with 3xTF32 products), which the tests hold against both. Layouts are the
-kernels' own: heads before sequence for attention, the model's
-(B, S, H, P) for the SSD block.
+decompositions (split-KV decode, dense and paged; float32 flash and the
+SSD block in tiles with 3xTF32 products), which the tests hold against
+both. Layouts are the kernels' own: heads before sequence for attention,
+the model's (B, S, H, P) for the SSD block.
 """
 from __future__ import annotations
 
@@ -308,15 +308,133 @@ def tf32_round(x):
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
-def mm_3xtf32(a, b):
+def tf32_truncate(x):
+    """float32 -> TF32 by dropping the low 13 bits, as the tensor core reads
+    a float32 register handed to it as TF32."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def mm_3xtf32(a, b, *, round_lo: bool = True):
     """``a @ b`` as the SSD kernel's tensor cores take it: each float32
     operand split into TF32 hi + lo, and lo·hi + hi·lo + hi·hi summed in
-    float32 (lo·lo, some 2^-22 of a product, is left out)."""
+    float32 (lo·lo, some 2^-22 of a product, is left out). With
+    ``round_lo=False`` lo is truncated, as the float32 flash kernel hands it
+    over unrounded."""
+    lo = tf32_round if round_lo else tf32_truncate
     ah = tf32_round(a)
-    al = tf32_round(a - ah)
+    al = lo(a - ah)
     bh = tf32_round(b)
-    bl = tf32_round(b - bh)
+    bl = lo(b - bh)
     return al @ bh + ah @ bl + ah @ bh
+
+
+def mm_3xtf32_flash(a, b):
+    """`mm_3xtf32` as the float32 flash kernel takes it: lo unrounded."""
+    return mm_3xtf32(a, b, round_lo=False)
+
+
+# the float32 flash kernel's packed query rows a warp
+FLASH_WARP_ROWS = 16
+LOG2E = 1.4426950408889634
+LN2 = 0.6931471805599453
+
+
+def flash_key_tile(d: int) -> int:
+    """Keys a K/V tile of the float32 flash kernel at head_dim ``d``."""
+    return 32 if d >= 96 else 64
+
+
+def _key_span(q_lo, q_hi, sk, causal, window, q_offset, bk):
+    """The keys [begin, end) some query in [q_lo, q_hi] may see, begin
+    rounded down to a tile of ``bk`` (``flash_tiles.cuh::key_span``)."""
+    end = min(q_hi + q_offset + 1, sk) if causal else sk
+    begin = q_lo + q_offset - window + 1 if window > 0 else 0
+    begin = (begin // bk) * bk if begin > 0 else 0
+    return begin, max(end, begin)
+
+
+def _packed_span(r0, r1, sq):
+    """The least and greatest query among packed rows [r0, r1): every
+    query where the rows cross into the next head."""
+    if r0 // sq != (r1 - 1) // sq:
+        return 0, sq - 1
+    return r0 % sq, (r1 - 1) % sq
+
+
+def _flash_state(qw, qpos, kf, vf, sk, tiles, bk, *, causal, window,
+                 scale_log2, mm):
+    """One warp's online softmax over its K/V tiles (keys [k0, k0 + bk) of
+    kf, vf for each k0 in ``tiles``, zero-padded past the sk keys): m in
+    log2 units, l and acc, float32."""
+    b, hkv, n, d = qw.shape
+    m_run = torch.full((b, hkv, n), -torch.inf)
+    l_run = torch.zeros(b, hkv, n)
+    acc = torch.zeros(b, hkv, n, d)
+    for k0 in tiles:
+        kpos = torch.arange(k0, k0 + bk)
+        present = kpos < sk
+        kt = kf[:, :, k0:k0 + bk]
+        vt = vf[:, :, k0:k0 + bk]
+        s = mm(qw, kt.transpose(-1, -2))
+        seen = attention_mask(qpos, kpos, causal=causal, window=window)
+        s = torch.where(seen, s, torch.full_like(s, NEG_INF))
+        s = torch.where(present, s, torch.full_like(s, -torch.inf))
+        xm = torch.where(seen & present, s * scale_log2, s)
+        m_new = torch.maximum(m_run, xm.amax(-1))
+        alpha = torch.exp2(m_run - m_new)
+        # p = 2^(s * scale_log2 - m), one rounding as the kernel's fused
+        # multiply-add; the masked keys' finite NEG_INF as it stands
+        p = torch.where(
+            s == NEG_INF, torch.exp2(NEG_INF - m_new[..., None]),
+            torch.exp2((s.double() * scale_log2.double()
+                        - m_new[..., None].double()).float()))
+        l_run = l_run * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + mm(p, vt)
+        m_run = m_new
+    return m_run, l_run, acc
+
+
+def flash_attention_tiled_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                              q_offset: int = 0, scale: float = 1.0,
+                              mm=mm_3xtf32_flash):
+    """`flash_attention_lse_ref` computed as the float32 flash kernel
+    computes it.
+
+    The g q-heads of a kv-head are packed into rows (row r is q-head r // Sq,
+    query r % Sq), 64 to a CTA, which loads the K/V tiles of
+    `flash_key_tile` keys that some of its queries may see; each 16 rows (a
+    warp) walk the tiles that some of their own queries may see and skip
+    the rest. Keys a row may not see are masked with the finite NEG_INF
+    (keys past Sk get no weight at all), the online softmax is kept in log2
+    units (the scale folded into ``scale * log2 e``), and S = Q·Kᵀ and
+    O += P·V go through ``mm`` (`mm_3xtf32_flash`, the kernel's three TF32
+    products). Shapes as `flash_attention_ref`; returns (out in q.dtype,
+    lse (B, Hq, Sq) float32).
+    """
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    rows = hq // hkv * sq
+    bk = flash_key_tile(d)
+    scale_log2 = torch.tensor(scale * LOG2E, dtype=torch.float32)
+    qp = q.float().reshape(b, hkv, rows, d)
+    pad = (0, 0, 0, -sk % bk)   # zero keys past sk, as the kernel loads them
+    kf, vf = F.pad(k.float(), pad), F.pad(v.float(), pad)
+    out = torch.zeros(b, hkv, rows, d)
+    lse = torch.zeros(b, hkv, rows)
+    for w0 in range(0, rows, FLASH_WARP_ROWS):
+        pr = torch.arange(w0, min(w0 + FLASH_WARP_ROWS, rows))
+        begin, end = _key_span(*_packed_span(w0, int(pr[-1]) + 1, sq), sk,
+                               causal, window, q_offset, bk)
+        m_run, l_run, acc = _flash_state(
+            qp[:, :, pr], pr % sq + q_offset, kf, vf, sk,
+            range(begin, end, bk), bk, causal=causal, window=window,
+            scale_log2=scale_log2, mm=mm)
+        denom = torch.clamp(l_run, min=1e-30)
+        out[:, :, pr] = acc / denom[..., None]
+        m = torch.where(m_run == NEG_INF, m_run, m_run * LN2)
+        lse[:, :, pr] = m + torch.log(denom)
+    return (out.reshape(b, hq, sq, d).to(q.dtype),
+            lse.reshape(b, hq, sq))
 
 
 def ssd_diag_tiled_ref(x, dt, A, Bm, Cm, *, chunk: int = 256):

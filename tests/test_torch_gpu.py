@@ -367,8 +367,8 @@ def test_flash_tensor_core_sweep(cuda, d, g, sq, window):
 ])
 def test_flash_offsets_and_ragged_on_cuda(cuda, dtype, tol, b, hq, hkv, sq,
                                           sk, d, window, q_offset):
-    """Sq != Sk with q_offset and long ragged rows: bf16 on the tensor-core
-    kernel, float32 still on the CUDA-core kernel at 2e-5."""
+    """Sq != Sk with q_offset and long ragged rows: bf16 on the wgmma
+    kernel, float32 on the 3xTF32 mma.sync kernel at 2e-5."""
     dt = TORCH_DT[dtype]
     q = torch.from_numpy(_normal(53, b, hq, sq, d)).to(cuda, dt)
     k = torch.from_numpy(_normal(54, b, hkv, sk, d)).to(cuda, dt)
@@ -396,7 +396,7 @@ def test_flash_mla_head_dims_on_cuda(cuda, dtype, tol, d, b, hq, hkv, sq, sk,
                                      window, q_offset):
     """head_dim 48 and 96 (MLA's qk_nope + qk_rope): bf16 on the
     tensor-core kernel with its tiles padded to 64 and 128 columns in
-    shared memory, float32 on the CUDA-core kernel, both against the plain
+    shared memory, float32 on the 3xTF32 kernel, both against the plain
     version, and again on strided views whose rows are wider than d."""
     dt = TORCH_DT[dtype]
     q = torch.from_numpy(_normal(70, b, hq, sq, d)).to(cuda, dt)
@@ -420,6 +420,68 @@ def test_flash_mla_head_dims_on_cuda(cuda, dtype, tol, d, b, hq, hkv, sq, sk,
     got = ops.flash_attention(*views, window=window, q_offset=q_offset,
                               scale=d ** -0.5)
     torch.testing.assert_close(got.transpose(1, 2), out, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [48, 64, 96, 128, 256])
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,causal,window,q_offset", [
+    (1, 8, 1, 32, 32, True, 0, 0),        # the serving path's bucket, G 8
+    (2, 6, 2, 45, 77, True, 0, 32),       # ragged tiles, q_offset
+    (1, 4, 4, 130, 130, True, 40, 0),     # window, ragged rows
+    (1, 16, 1, 70, 200, True, 64, 130),   # G 16, window and offset
+    (2, 4, 2, 100, 300, False, 0, 0),     # non-causal, Sq != Sk
+    (1, 2, 1, 600, 600, True, 0, 0),      # many tiles, longest CTAs first
+])
+def test_flash_f32_tensor_core_kernel_on_cuda(cuda, d, b, hq, hkv, sq, sk,
+                                              causal, window, q_offset):
+    """The float32 kernel (3xTF32 on the tensor cores) against the plain
+    version and against its own decomposition on the CPU
+    (`flash_attention_tiled_ref`) at 2e-5, its logsumexp too, one launch a
+    call; and on model-layout views whose rows are 32 columns wider than d
+    (the extra columns NaN), the same output to the bit."""
+    q = torch.from_numpy(_normal(160, b, hq, sq, d)).to(cuda)
+    k = torch.from_numpy(_normal(161, b, hkv, sk, d)).to(cuda)
+    v = torch.from_numpy(_normal(162, b, hkv, sk, d)).to(cuda)
+    kw = dict(causal=causal, window=window, q_offset=q_offset,
+              scale=d ** -0.5)
+    before = flash_attention.launches
+    out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    plain, plain_lse = tref.flash_attention_lse_ref(q, k, v, **kw)
+    torch.testing.assert_close(out, plain, rtol=2e-5, atol=2e-5)
+    assert _rms_ok(out, plain)
+    torch.testing.assert_close(lse, plain_lse, rtol=2e-5, atol=2e-5)
+    tiled, tiled_lse = tref.flash_attention_tiled_ref(
+        *(x.cpu() for x in (q, k, v)), **kw)
+    torch.testing.assert_close(out.cpu(), tiled, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(lse.cpu(), tiled_lse, rtol=2e-5, atol=2e-5)
+    views = []
+    for x in (q, k, v):
+        wide = torch.full(x.shape[:3] + (d + 32,), float("nan"), device=cuda)
+        wide[..., :d] = x
+        views.append(wide.transpose(1, 2)[..., :d])
+    got = ops.flash_attention(*views, **kw)
+    torch.testing.assert_close(got.transpose(1, 2), out, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [48, 64, 96, 128, 256])
+def test_flash_f32_unaligned_operands_on_cuda(cuda, d):
+    """Operands whose pointer is 4 bytes off a 16-byte boundary take the
+    kernel's 4-byte copies: the same output as aligned copies of them."""
+    b, hq, hkv, sq, sk = 1, 4, 2, 50, 90
+    buf = torch.from_numpy(_normal(163, 3 * b * hq * sk * d + 1)).to(cuda)
+    n_q, n_kv = b * hq * sq * d, b * hkv * sk * d
+    q = buf[1:1 + n_q].view(b, hq, sq, d)
+    k = buf[1 + n_q:1 + n_q + n_kv].view(b, hkv, sk, d)
+    v = buf[1 + n_q + n_kv:1 + n_q + 2 * n_kv].view(b, hkv, sk, d)
+    kw = dict(window=32, q_offset=40, scale=d ** -0.5)
+    out = flash_attention(q, k, v, **kw)
+    want = flash_attention(q.clone(), k.clone(), v.clone(), **kw)
+    torch.testing.assert_close(out, want, rtol=0, atol=0)
+    torch.testing.assert_close(
+        out, tref.flash_attention_ref(q, k, v, **kw), rtol=2e-5, atol=2e-5)
 
 
 @pytest.mark.gpu
