@@ -1,0 +1,78 @@
+"""Find a cell's pieces by name: its entry in ``BENCHMARK.json``, its
+configuration file, its traffic mix (``traffic/<name>.json``), its own
+settings (``cells/<name>.json``: the offered rate of an open loop, the
+correctness limits) and a reader for every metric it reports
+(``metrics/<name>.py``, a module with ``read(record)``; a metric
+``<name>.<mix>`` that has no file of its own is read by
+``metrics/<name>.py``). Adding a cell, a mix or a metric adds files and
+entries; no file here names one."""
+from __future__ import annotations
+
+import dataclasses
+import importlib.util
+import json
+import re
+from pathlib import Path
+
+BENCH_DIR = Path(__file__).resolve().parents[1]
+
+
+@dataclasses.dataclass
+class Cell:
+    name: str
+    chips: int
+    config: dict
+    traffic: dict
+    settings: dict
+    end_to_end: list        # BENCHMARK.json metric entries this cell reports
+    per_layer: list
+
+
+def load_json(path: Path) -> dict:
+    with open(path) as f:
+        return json.load(f)
+
+
+def _reports(metric: dict, cell: str) -> bool:
+    """A metric with no `workloads` is read in every cell; its reader
+    returns None where it finds nothing."""
+    return cell in metric.get("workloads", (cell,))
+
+
+def cell(name: str, bench_dir: Path = BENCH_DIR,
+         root: Path | None = None) -> Cell:
+    root = bench_dir.parent if root is None else root
+    bench = load_json(root / "BENCHMARK.json")
+    work = {w["name"]: w for w in bench["workloads"]}
+    if name not in work:
+        raise KeyError(f"no workload {name!r} in BENCHMARK.json; there are "
+                       f"{sorted(work)}")
+    w = work[name]
+    cfg_entry = {c["name"]: c for c in bench["configs"]}[w["config"]]
+    config = load_json(root / cfg_entry["file"])
+    e2e = [m for m in bench["end_to_end"] if _reports(m, name)]
+    per_layer = [m for m in bench["per_layer"] if _reports(m, name)]
+    return Cell(name=name, chips=w["chips"], config=config,
+                traffic=load_json(bench_dir / "traffic"
+                                  / f"{w['traffic']}.json"),
+                settings=load_json(bench_dir / "cells" / f"{name}.json"),
+                end_to_end=e2e, per_layer=per_layer)
+
+
+def reader_file(metric: str, bench_dir: Path = BENCH_DIR) -> Path:
+    """``metrics/<metric>.py``, or for ``<name>.<mix>`` with no file of its
+    own ``metrics/<name>.py``."""
+    path = bench_dir / "metrics" / f"{metric}.py"
+    if not path.is_file() and "." in metric:
+        path = bench_dir / "metrics" / f"{metric.rsplit('.', 1)[0]}.py"
+    return path
+
+
+def reader(metric: str, bench_dir: Path = BENCH_DIR):
+    """The `read` function of the metric's file (`reader_file`)."""
+    path = reader_file(metric, bench_dir)
+    spec = importlib.util.spec_from_file_location(
+        "cardbench_metric_" + re.sub(r"\W", "_", metric), path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.read
