@@ -20,6 +20,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import parallel as PAR
 from repro_torch.models import transformer as T
 from repro_torch.models.parallel import resolve_device
+from repro_torch.obs.spans import model_range
 
 # ---------------------------------------------------------------------------
 # Params
@@ -175,14 +176,15 @@ def lm_head(params, x, cfg: ModelConfig, ctx=None):
     """Logits in float32, with the optional tanh softcap (over the whole
     vocabulary under a mesh too: gathered where it is split)."""
     w = params["embed"] if cfg.tie_embeddings else params["unembed"]
-    if PAR.is_sharded(ctx):
-        from repro_torch.models import tp as TP
-        logits = TP.lm_head(w, x, cfg, ctx)
-    else:
-        logits = x.float() @ w.float().t()
-    if cfg.logit_softcap:
-        c = cfg.logit_softcap
-        logits = c * torch.tanh(logits / c)
+    with model_range("model.head"):
+        if PAR.is_sharded(ctx):
+            from repro_torch.models import tp as TP
+            logits = TP.lm_head(w, x, cfg, ctx)
+        else:
+            logits = x.float() @ w.float().t()
+        if cfg.logit_softcap:
+            c = cfg.logit_softcap
+            logits = c * torch.tanh(logits / c)
     return logits
 
 

@@ -31,6 +31,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as RG
 from repro_torch.models import ssm as SSM
+from repro_torch.obs.spans import model_range
 
 
 @dataclasses.dataclass(frozen=True)
@@ -166,44 +167,52 @@ def apply_layer(spec: LayerSpec, p, x, *, cfg: ModelConfig, mode: str,
                                     cache=cache, pos=pos,
                                     positions=positions, enc_out=enc_out,
                                     ctx=ctx, cspec=cspec)
-    h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
+    # the ranges of the serving engine's traced steps (`model_range`)
+    with model_range("model.norm"):
+        h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
+    with model_range("model.attn"):
+        if spec.kind == "ssm":
+            mix, new_cache = SSM.ssm_layer(p["mix"], h, cfg=cfg, mode=mode,
+                                           cache=cache)
+        elif spec.kind == "mla":
+            mix, new_cache = L.mla_layer(p["mix"], h, cfg=cfg, mode=mode,
+                                         cache=cache, pos=pos,
+                                         positions=positions)
+        elif spec.kind == "rec":
+            mix, new_cache = RG.rglru_layer(p["mix"], h, cfg=cfg, mode=mode,
+                                            cache=cache)
+        else:
+            mix, new_cache = L.attention_layer(
+                p["mix"], h, cfg=cfg, mode=mode, cache=cache, pos=pos,
+                window=spec.window, positions=positions)
     if spec.kind == "ssm":
-        mix, new_cache = SSM.ssm_layer(p["mix"], h, cfg=cfg, mode=mode,
-                                       cache=cache)
         return x + mix, new_cache, {}
-    if spec.kind == "mla":
-        mix, new_cache = L.mla_layer(p["mix"], h, cfg=cfg, mode=mode,
-                                     cache=cache, pos=pos,
-                                     positions=positions)
-    elif spec.kind == "rec":
-        mix, new_cache = RG.rglru_layer(p["mix"], h, cfg=cfg, mode=mode,
-                                        cache=cache)
-    else:
-        mix, new_cache = L.attention_layer(
-            p["mix"], h, cfg=cfg, mode=mode, cache=cache, pos=pos,
-            window=spec.window, positions=positions)
     x = x + mix
     use_cross = spec.cross and (
         enc_out is not None
         or (mode == "decode" and cache is not None and "cross_k" in cache))
     if use_cross:
-        h = L.rmsnorm(p["norm_cross"], x, cfg.norm_eps)
+        with model_range("model.norm"):
+            h = L.rmsnorm(p["norm_cross"], x, cfg.norm_eps)
         enc_cache = None
         if cache is not None and mode == "decode":
             enc_cache = {"k": cache["cross_k"], "v": cache["cross_v"]}
-        mix, cross_kv = L.attention_layer(
-            p["cross"], h, cfg=cfg, mode=mode, enc_out=enc_out,
-            enc_cache=enc_cache, causal=False)
+        with model_range("model.attn"):
+            mix, cross_kv = L.attention_layer(
+                p["cross"], h, cfg=cfg, mode=mode, enc_out=enc_out,
+                enc_cache=enc_cache, causal=False)
         x = x + mix
         if new_cache is not None:
             new_cache["cross_k"] = cross_kv["k"]
             new_cache["cross_v"] = cross_kv["v"]
-    h = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
+    with model_range("model.norm"):
+        h = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
     aux = {}
-    if spec.moe:
-        out, aux = MOE.moe_fn(moe_dispatch)(p["moe"], h, cfg=cfg)
-    else:
-        out = L.mlp(p["mlp"], h, cfg.activation)
+    with model_range("model.mlp"):
+        if spec.moe:
+            out, aux = MOE.moe_fn(moe_dispatch)(p["moe"], h, cfg=cfg)
+        else:
+            out = L.mlp(p["mlp"], h, cfg.activation)
     return x + out, new_cache, aux
 
 

@@ -58,6 +58,7 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import parallel as PAR
 from repro_torch.models.parallel import resolve_device
 from repro_torch.obs.metrics import MetricsRegistry, counter_attr, with_aliases
+from repro_torch.obs.spans import NO_SPAN
 from repro_torch.serving.kvcache import KVSnapshot, PagedKVCache, PageTable
 from repro_torch.serving.sampling import sample_tokens
 
@@ -71,7 +72,10 @@ class Request:
     # runtime
     slot: int = -1
     generated: List[int] = dataclasses.field(default_factory=list)
+    # stamps on time.perf_counter: submitted, its prefill (or resume) begun,
+    # first token read, finished
     submitted_at: float = 0.0
+    admitted_at: float = -1.0
     first_token_at: float = -1.0
     done_at: float = -1.0
     # paged-KV runtime: the request's block-pool pages while it holds any,
@@ -133,6 +137,9 @@ class ServingEngine:
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self.completed: List[Request] = []
         self.metrics = MetricsRegistry()
+        # the span log (`repro_torch.obs.spans.SpanLog`) of a run that times
+        # the engine's phases; None: nothing is recorded
+        self.spans = None
         self._compiled_shapes: set = set()
         self.n_prefills = 0       # prompts actually prefilled (resumes skip)
         # model decode steps run: one a `step` that decodes, one a token of
@@ -171,7 +178,7 @@ class ServingEngine:
                     f"{self.kv.n_blocks}; it could never be admitted")
         req = Request(rid=next(self._rid), prompt=list(prompt),
                       max_new_tokens=max_new_tokens, eos_id=eos_id,
-                      submitted_at=time.time())
+                      submitted_at=time.perf_counter())
         self.queue.append(req)
         return req
 
@@ -219,6 +226,10 @@ class ServingEngine:
         return self.paged and self.prefix_sharing \
             and self.kv.supports_prefix
 
+    def _span(self, name: str, **attrs):
+        return NO_SPAN if self.spans is None else self.spans.span(name,
+                                                                  **attrs)
+
     def _note_compile(self, kind: str, shape) -> None:
         key = (kind, tuple(shape))
         if key not in self._compiled_shapes:
@@ -228,12 +239,13 @@ class ServingEngine:
     def _insert_slot(self, slot: int, single_cache) -> None:
         # in place: every leaf of the batch cache takes row `slot` of the
         # single-slot cache (the JAX engine builds a new cache tree)
-        if self.ctx is not None:
-            self._insert_slot_sharded(slot, single_cache)
-            return
-        for layer, one in zip(self.cache, single_cache, strict=True):
-            for key, leaf in layer.items():
-                leaf[slot] = one[key][0]
+        with self._span("engine.insert"):
+            if self.ctx is not None:
+                self._insert_slot_sharded(slot, single_cache)
+                return
+            for layer, one in zip(self.cache, single_cache, strict=True):
+                for key, leaf in layer.items():
+                    leaf[slot] = one[key][0]
 
     def _insert_slot_sharded(self, slot: int, single_cache) -> None:
         """Row `slot` of this rank's cache shards from a batch-1 cache in
@@ -260,8 +272,9 @@ class ServingEngine:
     def _one_cache(self):
         """An empty batch-1 cache for a prefill: under a mesh cut as
         ``cache_specs_tree`` cuts a batch of one."""
-        return M.init_cache(self.cfg, 1, self.max_seq, device=self.device,
-                            ctx=self.ctx)
+        with self._span("engine.cache"):
+            return M.init_cache(self.cfg, 1, self.max_seq,
+                                device=self.device, ctx=self.ctx)
 
     def _extract_slot(self, slot: int):
         """Row `slot` of every cache leaf, as a batch-1 cache of copies
@@ -294,38 +307,55 @@ class ServingEngine:
 
     # ------------------------------------------------------------------
     def _admit(self) -> None:
-        for slot in range(self.max_batch):
-            if self.slot_req[slot] is not None:
-                continue
-            if not self.queue:
-                break
-            req = self.queue[0]
-            if self.paged and req.kv is not None:
-                self.queue.pop(0)
-                self._resume(slot, req)
-                continue
-            if self.paged:
-                req.pages = self.kv.allocate(
-                    len(req.prompt) + req.max_new_tokens,
-                    prompt=req.prompt if self._sharing else None)
-                if req.pages is None:
-                    # KV pressure: admission stalls FIFO — but a resumable
-                    # continuation further back already holds its pages
-                    # (it allocates nothing) and must pass the stalled
-                    # head, or its held blocks could deadlock the pool
-                    self.n_kv_stalls += 1
-                    ri = next((i for i, q in enumerate(self.queue)
-                               if q.kv is not None), None)
-                    if ri is None:
-                        break
-                    self._resume(slot, self.queue.pop(ri))
+        with self._span("engine.admit"):
+            for slot in range(self.max_batch):
+                if self.slot_req[slot] is not None:
                     continue
-            self.queue.pop(0)
-            plen = len(req.prompt)
-            skip = 0
-            if self.paged and req.pages is not None \
-                    and req.pages.shared_blocks > 0:
-                skip = req.pages.shared_blocks * self.kv.block_tokens
+                if not self.queue:
+                    break
+                req = self.queue[0]
+                if self.paged and req.kv is not None:
+                    self.queue.pop(0)
+                    self._resume(slot, req)
+                    continue
+                if self.paged:
+                    req.pages = self.kv.allocate(
+                        len(req.prompt) + req.max_new_tokens,
+                        prompt=req.prompt if self._sharing else None)
+                    if req.pages is None:
+                        # KV pressure: admission stalls FIFO — but a
+                        # resumable continuation further back already holds
+                        # its pages (it allocates nothing) and must pass the
+                        # stalled head, or its held blocks could deadlock
+                        # the pool
+                        self.n_kv_stalls += 1
+                        ri = next((i for i, q in enumerate(self.queue)
+                                   if q.kv is not None), None)
+                        if ri is None:
+                            break
+                        self._resume(slot, self.queue.pop(ri))
+                        continue
+                self.queue.pop(0)
+                self._prefill(slot, req)
+
+    def _prefill(self, slot: int, req: Request) -> None:
+        """Prefill `req`'s prompt into `slot` (a prefix hit: decode its
+        suffix) and take its first token."""
+        req.admitted_at = time.perf_counter()
+        plen = len(req.prompt)
+        skip = 0
+        if self.paged and req.pages is not None \
+                and req.pages.shared_blocks > 0:
+            skip = req.pages.shared_blocks * self.kv.block_tokens
+        # prompts are right-padded to power-of-2 buckets, so the prefill
+        # shapes stay at log2(max_seq); attention slots >= plen hold padding
+        # K/V that decode overwrites before the position mask reaches them
+        # (a recurrent state, Mamba-2's or RG-LRU's, absorbs the padding, as
+        # in the JAX engine)
+        bucket = 0 if skip else min(1 << max(plen - 1, 1).bit_length(),
+                                    self.max_seq)
+        with self._span("engine.prefill", rid=req.rid, tokens=plen,
+                        bucket=bucket):
             if skip > 0:
                 # prefix hit: the table's read-shared head already holds
                 # the prompt's first `skip` tokens of KV — gather the
@@ -348,14 +378,6 @@ class ServingEngine:
                 self.n_prefix_hits += 1
                 self.prefix_tokens_reused += skip
             else:
-                # prompts are right-padded to power-of-2 buckets, so the
-                # prefill shapes stay at log2(max_seq); attention slots
-                # >= plen hold padding K/V that decode overwrites before
-                # the position mask reaches them (a recurrent state,
-                # Mamba-2's or RG-LRU's, absorbs the padding, as in the
-                # JAX engine)
-                bucket = 1 << max(plen - 1, 1).bit_length()
-                bucket = min(bucket, self.max_seq)
                 padded = req.prompt + [0] * (bucket - plen)
                 prompt = torch.tensor([padded], dtype=torch.long,
                                       device=self.device)
@@ -365,6 +387,8 @@ class ServingEngine:
                     batch["positions"] = torch.arange(
                         bucket, device=self.device).expand(3, 1, bucket)
                 self._note_compile("prefill", prompt.shape)
+                self.metrics.inc("engine.prefill_positions", bucket)
+                self.metrics.inc("engine.prefill_pad_positions", bucket - plen)
                 last_logits, one_cache = M.prefill(
                     self.params, batch, one_cache, cfg=self.cfg,
                     last=plen - 1, moe_dispatch=self.moe_dispatch,
@@ -376,20 +400,22 @@ class ServingEngine:
                 # later admissions can attach them copy-on-write
                 self.kv.store_prefix(req.pages, one_cache, n_tokens=plen)
                 self.kv.register_prefix(req.prompt, req.pages)
-            tok = int(sample_tokens(last_logits, self.temperature,
-                                    generator=self._gen)[0])
+            with self._span("engine.sync"):
+                tok = int(sample_tokens(last_logits, self.temperature,
+                                        generator=self._gen)[0])
             self._insert_slot(slot, one_cache)
-            req.slot = slot
-            req.generated.append(tok)
-            req.first_token_at = time.time()
-            self.positions[slot] = plen
-            self.cur_tokens[slot] = tok
-            self.slot_req[slot] = req
-            self._maybe_finish(slot)
+            req.first_token_at = time.perf_counter()
+        req.slot = slot
+        req.generated.append(tok)
+        self.positions[slot] = plen
+        self.cur_tokens[slot] = tok
+        self.slot_req[slot] = req
+        self._maybe_finish(slot)
 
     def _resume(self, slot: int, req: Request) -> None:
         """Reattach an evicted request: gather its pages back into the
         slot's dense compute cache and continue decoding — no prefill."""
+        req.admitted_at = time.perf_counter()
         snap = req.kv
         req.kv = None
         self._insert_slot(slot, self.kv.load(req.pages, snap.state))
@@ -435,7 +461,7 @@ class ServingEngine:
         if (len(req.generated) >= req.max_new_tokens
                 or (req.eos_id >= 0 and last == req.eos_id)
                 or self.positions[slot] >= self.max_seq - 1):
-            req.done_at = time.time()
+            req.done_at = time.perf_counter()
             self.completed.append(req)
             self.slot_req[slot] = None
             self.positions[slot] = 0
@@ -445,6 +471,14 @@ class ServingEngine:
     # ------------------------------------------------------------------
     def step(self) -> int:
         """Admit + one decode step for all slots. Returns #active."""
+        if self.spans is None:
+            return self._step()
+        with self.spans.span("engine.step") as s, self.spans.model_ranges():
+            n = self._step()
+            s.attrs["active"] = n
+        return n
+
+    def _step(self) -> int:
         self._admit()
         active = self.active_slots
         if not active:
@@ -454,13 +488,14 @@ class ServingEngine:
         pos = torch.tensor(self.positions, dtype=torch.int32,
                            device=self.device)
         self._note_compile("decode", tokens.shape)
-        logits, self.cache = M.decode_step(self.params, tokens, self.cache,
-                                           pos, cfg=self.cfg,
-                                           moe_dispatch=self.moe_dispatch,
-                                           ctx=self.ctx)
+        with self._span("engine.decode"):
+            logits, self.cache = M.decode_step(
+                self.params, tokens, self.cache, pos, cfg=self.cfg,
+                moe_dispatch=self.moe_dispatch, ctx=self.ctx)
         self.n_decode_steps += 1
-        next_tokens = sample_tokens(logits, self.temperature,
-                                    generator=self._gen).tolist()
+        with self._span("engine.sync"):
+            next_tokens = sample_tokens(logits, self.temperature,
+                                        generator=self._gen).tolist()
         for slot in active:
             req = self.slot_req[slot]
             req.generated.append(next_tokens[slot])
