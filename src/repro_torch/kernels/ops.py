@@ -113,3 +113,13 @@ def reset_launches() -> None:
         fn.launches = 0
     _dec.decode_attention.lse_launches = 0
 
+
+def add_launches(counts: dict) -> None:
+    """Add `counts` (keys of `kernel_launches`; a missing key adds 0) to
+    the launch counters. A CUDA graph's replay runs no wrapper, so the
+    graph's owner adds the launches its capture recorded at each replay,
+    and takes back those of the capture itself, which launched nothing."""
+    for name, fn in _KERNELS.items():
+        fn.launches += counts.get(name, 0)
+    _dec.decode_attention.lse_launches += counts.get("decode_attention_lse", 0)
+

@@ -10,6 +10,7 @@ JAX weights over when the two must agree).
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -119,9 +120,17 @@ def embed_tokens(params, tokens, cfg: ModelConfig, ctx=None):
     if cfg.family in ("dense", "hybrid", "vlm") and cfg.tie_embeddings:
         # gemma-family convention: scale token embeddings by sqrt(d), in the
         # embedding's own dtype
-        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
-                             device=x.device)
+        x = x * _embed_scale(cfg.d_model, x.dtype)
     return x
+
+
+@functools.lru_cache(maxsize=None)
+def _embed_scale(d_model: int, dtype: torch.dtype) -> float:
+    """sqrt(d_model) rounded to `dtype`, as a Python number, made once: a
+    tensor made from it at every call would be a copy to the device, which
+    a CUDA graph cannot capture. The product is the same as with a tensor
+    of `dtype` (its value is exact in the products' float32 and float64)."""
+    return float(torch.tensor(math.sqrt(d_model), dtype=dtype))
 
 
 def embed_inputs(params, batch, cfg: ModelConfig, ctx=None):

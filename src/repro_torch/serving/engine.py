@@ -21,7 +21,11 @@ the prefix index) and read at resume.
 On the card, prefill attention runs on the flash kernel, every decode step
 of an attention layer on the decode kernel (an MLA layer decodes through
 latent matrix products), and a Mamba-2 prefill on the SSD-diagonal kernel;
-an RG-LRU layer's recurrence is plain PyTorch. An M-RoPE model (qwen2-vl)
+an RG-LRU layer's recurrence is plain PyTorch. There an unsharded engine
+replays each prompt bucket's batch-1 prefill as a CUDA graph
+(`prefill_graph_applies`): the reset of a static batch-1 cache, the
+prefill, and the copy of that cache into the slot, the same work as the
+eager path, issued by one host call. An M-RoPE model (qwen2-vl)
 prefills with three equal (3, 1, S) position streams, as the JAX engine
 does; recurrent states (Mamba-2, RG-LRU) absorb the bucket padding, as in
 the JAX engine.
@@ -53,6 +57,7 @@ from typing import List, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops as kops
 from repro_torch.models import model as M
 from repro_torch.models import moe as MOE
 from repro_torch.models import parallel as PAR
@@ -88,10 +93,40 @@ class Request:
         return self.done_at >= 0
 
 
+def prefill_graph_applies(device, ctx, prefix_hit: bool) -> bool:
+    """Whether a prefill replays its bucket's CUDA graph: a bucket prefill
+    on a CUDA device with no mesh. A prefix hit's suffix decodes token by
+    token from the pool's pages; a sharded engine's prefill runs gloo
+    collectives, which no graph captures; the CPU has no graphs."""
+    return (torch.device(device).type == "cuda" and not PAR.is_sharded(ctx)
+            and not prefix_hit)
+
+
+@dataclasses.dataclass
+class _PrefillGraph:
+    graph: torch.cuda.CUDAGraph
+    logits: torch.Tensor        # its static (1, V) output
+    launches: dict              # the kernel launches its capture recorded
+
+
+class _GraphInputs:
+    """What every bucket's graph reads and writes besides the slot cache:
+    one buffer [last, slot, tokens...] (filled by one host-to-device copy a
+    prefill), the static batch-1 cache shared by all buckets, and M-RoPE's
+    three position streams."""
+
+    def __init__(self, cfg: ModelConfig, max_seq: int, device):
+        self.buf = torch.zeros(2 + max_seq, dtype=torch.long, device=device)
+        self.cache = M.init_cache(cfg, 1, max_seq, device=device)
+        self.leaves = [leaf for layer in self.cache for leaf in layer.values()]
+        self.positions = torch.arange(max_seq, device=device).expand(
+            3, 1, max_seq) if cfg.mrope else None
+
+
 class ServingEngine:
     # shape counters kept from the JAX engine, where each new shape is one
     # XLA compile: decode should stay at one (batch, 1) shape, prefill at
-    # one per pow-2 prompt bucket (the count a later CUDA-graph cache holds)
+    # one per pow-2 prompt bucket (on the card, the prefill graphs captured)
     decode_compiles = counter_attr("engine.decode_compiles")
     prefill_compiles = counter_attr("engine.prefill_compiles")
 
@@ -141,6 +176,17 @@ class ServingEngine:
         # the engine's phases; None: nothing is recorded
         self.spans = None
         self._compiled_shapes: set = set()
+        # the bucket prefills' CUDA graphs (bucket -> _PrefillGraph), their
+        # shared memory pool and their _GraphInputs, made at the first
+        # graphed prefill
+        self._graphs: dict = {}
+        self._graph_pool = None
+        self._graph_io: Optional[_GraphInputs] = None
+        # prefills that captured their bucket's graph, replayed it, or ran
+        # eagerly: there from the start, so that a zero reads as one
+        for name in ("prefill_graph_captures", "prefill_graph_replays",
+                     "prefill_eager"):
+            self.metrics.inc(f"engine.{name}", 0)
         self.n_prefills = 0       # prompts actually prefilled (resumes skip)
         # model decode steps run: one a `step` that decodes, one a token of
         # a prefix hit's suffix (not one of the JAX engine's stats keys)
@@ -354,6 +400,7 @@ class ServingEngine:
         # in the JAX engine)
         bucket = 0 if skip else min(1 << max(plen - 1, 1).bit_length(),
                                     self.max_seq)
+        graphed = prefill_graph_applies(self.device, self.ctx, skip > 0)
         with self._span("engine.prefill", rid=req.rid, tokens=plen,
                         bucket=bucket):
             if skip > 0:
@@ -379,20 +426,27 @@ class ServingEngine:
                 self.prefix_tokens_reused += skip
             else:
                 padded = req.prompt + [0] * (bucket - plen)
-                prompt = torch.tensor([padded], dtype=torch.long,
-                                      device=self.device)
-                one_cache = self._one_cache()
-                batch = {"tokens": prompt}
-                if self.cfg.mrope:
-                    batch["positions"] = torch.arange(
-                        bucket, device=self.device).expand(3, 1, bucket)
-                self._note_compile("prefill", prompt.shape)
+                self._note_compile("prefill", (1, bucket))
                 self.metrics.inc("engine.prefill_positions", bucket)
                 self.metrics.inc("engine.prefill_pad_positions", bucket - plen)
-                last_logits, one_cache = M.prefill(
-                    self.params, batch, one_cache, cfg=self.cfg,
-                    last=plen - 1, moe_dispatch=self.moe_dispatch,
-                    ctx=self.ctx)
+                if graphed:
+                    # the graph holds the fresh cache and the slot insert
+                    last_logits = self._graph_prefill(slot, padded, plen)
+                    one_cache = self._graph_io.cache
+                else:
+                    prompt = torch.tensor([padded], dtype=torch.long,
+                                          device=self.device)
+                    one_cache = self._one_cache()
+                    batch = {"tokens": prompt}
+                    if self.cfg.mrope:
+                        batch["positions"] = torch.arange(
+                            bucket, device=self.device).expand(3, 1, bucket)
+                    last_logits, one_cache = M.prefill(
+                        self.params, batch, one_cache, cfg=self.cfg,
+                        last=plen - 1, moe_dispatch=self.moe_dispatch,
+                        ctx=self.ctx)
+            if not graphed:
+                self.metrics.inc("engine.prefill_eager")
             self.n_prefills += 1
             if self._sharing:
                 # publish the prompt's full blocks while they really hold
@@ -403,7 +457,8 @@ class ServingEngine:
             with self._span("engine.sync"):
                 tok = int(sample_tokens(last_logits, self.temperature,
                                         generator=self._gen)[0])
-            self._insert_slot(slot, one_cache)
+            if not graphed:
+                self._insert_slot(slot, one_cache)
             req.first_token_at = time.perf_counter()
         req.slot = slot
         req.generated.append(tok)
@@ -411,6 +466,69 @@ class ServingEngine:
         self.cur_tokens[slot] = tok
         self.slot_req[slot] = req
         self._maybe_finish(slot)
+
+    def _graph_prefill(self, slot: int, padded: List[int], plen: int):
+        """The bucket prefill of `padded` (a prompt of `plen` tokens and its
+        padding) into `slot` on the graph path: the static inputs filled,
+        then the bucket's graph replayed. A bucket's first prefill runs the
+        graph's work once eagerly, which gives this prompt's logits and
+        makes every lazy initialisation before the capture, then captures
+        it. Returns the (1, V) logits."""
+        bucket = len(padded)
+        if self._graph_io is None:
+            self._graph_io = _GraphInputs(self.cfg, self.max_seq, self.device)
+        host = torch.tensor([plen - 1, slot] + padded, dtype=torch.long,
+                            pin_memory=self.device.type == "cuda")
+        self._graph_io.buf[:2 + bucket].copy_(host, non_blocking=True)
+        g = self._graphs.get(bucket)
+        if g is not None:
+            with torch.cuda.device(self.device):
+                g.graph.replay()
+            kops.add_launches(g.launches)
+            self.metrics.inc("engine.prefill_graph_replays")
+            return g.logits
+        logits = self._graph_body(bucket)
+        self._capture(bucket)
+        self.metrics.inc("engine.prefill_graph_captures")
+        return logits
+
+    def _graph_body(self, bucket: int):
+        """The work of bucket `bucket`'s graph: the static batch-1 cache
+        zeroed (the fresh cache `_one_cache` gives the eager path), the
+        buffer's tokens prefilled into it with the head on row `last`, and
+        every leaf copied into row `slot` of the slot cache. Returns the
+        (1, V) logits."""
+        io = self._graph_io
+        torch._foreach_zero_(io.leaves)
+        batch = {"tokens": io.buf[2:2 + bucket][None]}
+        if self.cfg.mrope:
+            batch["positions"] = io.positions[..., :bucket]
+        logits, one = M.prefill(self.params, batch, io.cache, cfg=self.cfg,
+                                last=io.buf[0:1],
+                                moe_dispatch=self.moe_dispatch)
+        slot = io.buf[1:2]
+        for layer, src in zip(self.cache, one, strict=True):
+            for key, leaf in layer.items():
+                leaf.index_copy_(0, slot, src[key])
+        return logits
+
+    def _capture(self, bucket: int) -> None:
+        """Capture `_graph_body(bucket)` as a CUDA graph, in the memory
+        pool every bucket's graph shares (one prefill runs at a time, and
+        its logits are read before the next). The capture launches
+        nothing: the launch counters give back its wrapper calls, and each
+        replay adds them."""
+        with torch.cuda.device(self.device):
+            if self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            graph = torch.cuda.CUDAGraph()
+            before = kops.kernel_launches()
+            with torch.cuda.graph(graph, pool=self._graph_pool):
+                logits = self._graph_body(bucket)
+        recorded = {k: v - before[k]
+                    for k, v in kops.kernel_launches().items()}
+        kops.add_launches({k: -v for k, v in recorded.items()})
+        self._graphs[bucket] = _PrefillGraph(graph, logits, recorded)
 
     def _resume(self, slot: int, req: Request) -> None:
         """Reattach an evicted request: gather its pages back into the

@@ -1226,3 +1226,214 @@ def test_deployment_heads_engine_card_vs_cpu(cuda, arch, max_seq, lengths):
             assert launches["decode_attention"] == eng.n_decode_steps * 6
         out.append([r.generated for r in done])
     assert out[0] == out[1]
+
+
+# ---------------------------------------------------------------------------
+# the engine's prefill graphs: each bucket's batch-1 prefill captured at its
+# first prefill and replayed after, against `prefill` called eagerly
+# ---------------------------------------------------------------------------
+
+GRAPH_MAX_SEQ = 128
+# buckets 8, 16, 32 and 128 (gemma3's window 64 rolls there), each met twice
+# or more, so that every bucket replays
+GRAPH_LENGTHS = [5, 7, 12, 14, 30, 20, 70, 100, 6]
+
+
+def _graph_weights(arch, dtype, cuda):
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    cfg = dataclasses.replace(get_config(arch).reduced(
+        n_layers=2, d_model=128, vocab_size=512), dtype=dtype)
+    return cfg, init_params(cfg, seed=0, device=cuda)
+
+
+def _spy_prefill_logits(monkeypatch):
+    """The logits each prefill of an engine of 2+ slots samples, in
+    admission order (a decode step's have a row a slot)."""
+    from repro_torch.serving import engine as E
+    seen, real = [], E.sample_tokens
+
+    def spy(logits, *args, **kw):
+        if logits.shape[0] == 1:
+            seen.append(logits.clone())
+        return real(logits, *args, **kw)
+
+    monkeypatch.setattr(E, "sample_tokens", spy)
+    return seen
+
+
+def _eager_prefill(cfg, params, prompt, max_seq, cuda, moe_dispatch="dense"):
+    """`prefill` called directly, as the eager engine calls it: the prompt
+    right-padded to its bucket, a fresh batch-1 cache, the head on its last
+    row."""
+    from repro_torch.models import model as M
+    n = len(prompt)
+    bucket = min(1 << max(n - 1, 1).bit_length(), max_seq)
+    batch = {"tokens": torch.tensor([prompt + [0] * (bucket - n)],
+                                    device=cuda)}
+    if cfg.mrope:
+        batch["positions"] = torch.arange(bucket, device=cuda).expand(
+            3, 1, bucket)
+    logits, _ = M.prefill(params, batch, M.init_cache(cfg, 1, max_seq,
+                                                      device=cuda),
+                          cfg=cfg, last=n - 1, moe_dispatch=moe_dispatch)
+    return logits
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,dtype,dispatch", [
+    ("yi-6b", "float32", "dense"),
+    ("yi-6b", "bfloat16", "dense"),
+    ("gemma-2b", "bfloat16", "dense"),          # the scaled embedding
+    ("gemma3-12b", "bfloat16", "dense"),        # window 64 rolls at 128
+    ("mamba2-2.7b", "bfloat16", "dense"),
+    ("deepseek-moe-16b", "bfloat16", "dense"),
+    ("deepseek-moe-16b", "bfloat16", "capacity"),
+    ("minicpm3-4b", "bfloat16", "dense"),       # MLA
+    ("qwen2-vl-2b", "bfloat16", "dense"),       # M-RoPE
+    ("recurrentgemma-2b", "bfloat16", "dense"),
+])
+def test_graphed_prefill_equals_eager_prefill(cuda, monkeypatch, arch, dtype,
+                                              dispatch):
+    """Every family the engine serves prefills through its bucket graphs on
+    the card: a capture at each bucket's first prefill, replays after, no
+    eager prefill; each prefill's logits equal `prefill` called eagerly bit
+    for bit, and so its first token."""
+    from repro_torch.serving import ServingEngine
+
+    cfg, params = _graph_weights(arch, dtype, cuda)
+    seen = _spy_prefill_logits(monkeypatch)
+    eng = ServingEngine(cfg, params, max_batch=3, max_seq=GRAPH_MAX_SEQ,
+                        device=cuda, moe_dispatch=dispatch)
+    prompts = [[(11 * i + 5 * j + 1) % 512 for j in range(n)]
+               for i, n in enumerate(GRAPH_LENGTHS)]
+    reqs = [eng.submit(p, max_new_tokens=4) for p in prompts]
+    eng.run_until_idle()
+    m = eng.metrics
+    buckets = len(eng._graphs)
+    assert buckets == 4 == eng.prefill_compiles
+    assert m.get("engine.prefill_graph_captures") == buckets
+    assert m.get("engine.prefill_graph_replays") == len(prompts) - buckets
+    assert m.get("engine.prefill_eager") == 0
+    assert len(seen) == len(prompts)
+    for prompt, req, got in zip(prompts, reqs, seen, strict=True):
+        want = _eager_prefill(cfg, params, prompt, GRAPH_MAX_SEQ, cuda,
+                              dispatch)
+        assert torch.equal(got, want), (len(prompt),
+                                        (got - want).abs().max().item())
+        assert req.generated[0] == int(want.argmax())
+
+
+@pytest.mark.gpu
+def test_graphed_prefill_resets_the_static_cache(cuda):
+    """A 2048-token prompt and then a 40-token one replayed in the same slot
+    give the 40-token prompt a fresh engine's tokens, and the slot's rows
+    past its bucket hold zeros: the graph's reset of the static batch-1
+    cache holds."""
+    from repro_torch.serving import ServingEngine
+
+    cfg, params = _graph_weights("yi-6b", "bfloat16", cuda)
+
+    def prompt(n, k):
+        return [(k * 13 + 7 * j + 1) % 512 for j in range(n)]
+
+    eng = ServingEngine(cfg, params, max_batch=1, max_seq=4096, device=cuda)
+    for p in (prompt(40, 1), prompt(2000, 2)):      # captures 64 and 2048
+        eng.submit(p, max_new_tokens=3)
+        eng.run_until_idle()
+    req = eng.submit(prompt(40, 3), max_new_tokens=6)
+    eng.run_until_idle()
+    assert eng.metrics.get("engine.prefill_graph_replays") == 1
+    fresh = ServingEngine(cfg, params, max_batch=1, max_seq=4096,
+                          device=cuda)
+    ref = fresh.submit(prompt(40, 3), max_new_tokens=6)
+    fresh.run_until_idle()
+    assert req.generated == ref.generated
+    # the prefill wrote the 64 bucket (its padding too), decode up to 45
+    for layer in eng.cache:
+        assert layer["k"][0, :64].any()
+        assert not layer["k"][0, 64:].any()
+        assert not layer["v"][0, 64:].any()
+
+
+@pytest.mark.gpu
+def test_graph_replay_advances_the_launch_counters(cuda):
+    """The kernel launch counters count a replayed prefill's kernels: what
+    the bucket's capture recorded (flash once a layer; the SSD kernel once
+    a layer for mamba2), while the capture itself counts nothing."""
+    from repro_torch.serving import ServingEngine
+
+    for arch, kernel in (("yi-6b", "flash_attention"),
+                         ("mamba2-2.7b", "ssd_diag")):
+        cfg, params = _graph_weights(arch, "bfloat16", cuda)
+        eng = ServingEngine(cfg, params, max_batch=2, max_seq=64,
+                            device=cuda)
+        ops.reset_launches()
+        eng.submit(list(range(3, 15)), max_new_tokens=1)     # captures 16
+        eng.run_until_idle()
+        assert ops.kernel_launches()[kernel] == cfg.n_layers
+        assert eng._graphs[16].launches[kernel] == cfg.n_layers
+        ops.reset_launches()
+        eng.submit(list(range(5, 18)), max_new_tokens=1)     # replays 16
+        eng.run_until_idle()
+        assert eng.metrics.get("engine.prefill_graph_replays") == 1
+        assert ops.kernel_launches()[kernel] == cfg.n_layers
+        assert ops.kernel_launches()["decode_attention"] == 0
+
+
+@pytest.mark.gpu
+def test_paged_engine_stores_the_prefix_of_a_graphed_prefill(cuda):
+    """A paged engine publishes a replayed prefill's blocks from the static
+    batch-1 cache; a later prompt that shares them decodes its suffix from
+    those pages and ends with the tokens of an engine without sharing."""
+    from repro_torch.serving import ServingEngine
+
+    cfg, params = _graph_weights("gemma-2b", "float32", cuda)
+    head = [(5 * j + 2) % 512 for j in range(32)]
+    prompts = [[(3 * j + 1) % 512 for j in range(35)],   # captures 64
+               head + [9, 10, 11],                       # replays 64
+               head + [12]]                              # hits head
+    out = []
+    for sharing in (True, False):
+        eng = ServingEngine(cfg, params, max_batch=1, max_seq=128,
+                            device=cuda, paged=True, kv_block_tokens=16,
+                            prefix_sharing=sharing)
+        reqs = [eng.submit(p, max_new_tokens=6) for p in prompts]
+        eng.run_until_idle()
+        out.append([r.generated for r in reqs])
+        if sharing:
+            assert eng.n_prefix_hits == 1
+            assert eng.metrics.get("engine.prefill_graph_replays") == 1
+    assert out[0] == out[1]
+
+
+@pytest.mark.gpu
+def test_profiler_sees_the_kernels_of_a_replay(cuda):
+    """Graphs captured before the profiler's first start (as a server warms
+    its buckets before anyone traces it): the trace of a replayed prefill
+    holds one graph launch, not a launch a kernel, and the kernels inside
+    it under their own names."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving import ServingEngine
+
+    cfg, params = _graph_weights("yi-6b", "bfloat16", cuda)
+    eng = ServingEngine(cfg, params, max_batch=2, max_seq=64, device=cuda)
+    eng.submit(list(range(3, 15)), max_new_tokens=1)         # captures 16
+    eng.run_until_idle()
+    eng.submit(list(range(5, 18)), max_new_tokens=1)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng._admit()                                         # replays 16
+        torch.cuda.synchronize()
+    assert eng.metrics.get("engine.prefill_graph_replays") == 1
+    events = list(prof.profiler.kineto_results.events())
+    host = [e.name() for e in events
+            if not str(e.device_type()).endswith("CUDA")]
+    device = [e.name() for e in events
+              if str(e.device_type()).endswith("CUDA")]
+    assert host.count("cudaGraphLaunch") == 1
+    # the token read's few launches beside it; eagerly, ~80 a layer
+    assert host.count("cudaLaunchKernel") < 10
+    assert sum("flash_tc_kernel" in n for n in device) == cfg.n_layers
