@@ -19,7 +19,6 @@ import torch
 
 from cardbench.core import check, energy, port, profile, registry, serve
 from cardbench.core.weights import make_weights
-from cardbench.core.work import BYTES, Shape
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
 
@@ -40,7 +39,7 @@ class Prepared:
     def __init__(self, cell: registry.Cell, seed: int, device,
                  t_process: float):
         cfg = cell.config
-        self.shape = Shape.of(cfg)
+        self.shape = registry.family(cfg).shape(cfg)
         self.weights = make_weights(self.shape, seed, device)
         self.engine = port.engine(cfg, self.weights, device)
         serve.warm_up(self.engine, cell.traffic, self.shape.vocab)
@@ -197,8 +196,7 @@ def _kv_in_use_gib(rec) -> dict | None:
     """The keys and values the traffic holds in the window's steps: every
     request a step decoded, at the positions it attended, in GiB (mean and
     most over the steps), and the requests in flight a step."""
-    s = rec.shape
-    per_token = 2 * s.layers * s.hkv * s.hd * BYTES[s.dtype]
+    per_token = rec.shape.kv_bytes_per_token
     held = [sum(x.decode_keys) * per_token / 2**30
             for x in rec.window_steps()]
     if not held:

@@ -1,21 +1,15 @@
-"""The plain reference: the configuration's decoder in float32 PyTorch, one
+"""The plain reference: the configuration's model in float32 PyTorch, one
 sequence at a time over its whole length, with no cache, no batching and no
-kernel of the program. It reads the weights the benchmark made (upcast here
-a layer at a time, so that it fits beside them) and the tokens the program
-served, and works out everything else again.
+kernel of the program. It reads the weights the benchmark made (upcast a
+layer at a time, so that it fits beside them) and the tokens the program
+served, and works out everything else again. The block is the
+configuration's family's (``families/<model_type>.py``, its ``logits``);
+here are the pieces that families share.
 
-The model: pre-norm residual blocks; RMSNorm ``x / rms(x) * (1 + scale)``;
-rotary embedding on the split halves of each head, angle ``pos *
-theta^(-2i/D)``; causal grouped-query attention, query head h reading
-key/value head ``h // (Hq / Hkv)``; a SwiGLU MLP ``(silu(x Wg) * x Wu) Wd``;
-in a mixture-of-experts layer a float32 softmax router whose top-k gates
-are renormalised where ``norm_topk_prob`` says so, the routed experts' gated
-sum and the shared experts' MLP; a final RMSNorm and an untied head.
-
-``precision="fp8"`` is the control: every weight product takes its two
-inputs rounded to float8 e4m3 (a scale per output channel of the weight and
-per row of the activations, as an fp8 serving path would), the rest as
-above.
+``precision="fp8"`` is the control (`Math`): every weight product takes its
+two inputs rounded to float8 e4m3 (a scale per output channel of the weight
+and per row of the activations, as an fp8 serving path would), the rest in
+float32.
 """
 from __future__ import annotations
 
@@ -24,9 +18,8 @@ import contextlib
 import torch
 import torch.nn.functional as F
 
-from cardbench.core.work import Shape
+from cardbench.core import registry
 
-Q_ROWS = 512             # query rows of one attention block
 FP8_MAX = 448.0
 
 
@@ -88,88 +81,15 @@ def rope(x, theta: float):
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
 
 
-def attention(h, w, s: Shape, theta: float, m: Math):
-    n = h.shape[0]
-    q = rope(m.mm(h, w["wq"]).view(n, s.hq, s.hd), theta)
-    k = rope(m.mm(h, w["wk"]).view(n, s.hkv, s.hd), theta)
-    v = m.mm(h, w["wv"]).view(n, s.hkv, s.hd)
-    g = s.hq // s.hkv
-    k = k.repeat_interleave(g, dim=1).transpose(0, 1)     # (H, S, D)
-    v = v.repeat_interleave(g, dim=1).transpose(0, 1)
-    q = q.transpose(0, 1) * s.hd ** -0.5
-    out = torch.empty_like(q)
-    for a in range(0, n, Q_ROWS):
-        b = min(a + Q_ROWS, n)
-        sc = q[:, a:b] @ k[:, :b].transpose(1, 2)          # (H, r, b)
-        mask = torch.arange(b, device=h.device)[None, :] \
-            > torch.arange(a, b, device=h.device)[:, None]
-        sc = sc.masked_fill(mask, float("-inf"))
-        out[:, a:b] = torch.softmax(sc, dim=-1) @ v[:, :b]
-    out = out.transpose(0, 1).reshape(n, s.hq * s.hd)
-    return m.mm(out, w["wo"])
-
-
 def mlp(h, w, m: Math):
     return m.mm(F.silu(m.mm(h, w["w_gate"])) * m.mm(h, w["w_up"]),
                 w["w_down"])
-
-
-def moe(h, w, s: Shape, renorm: bool, m: Math):
-    probs = torch.softmax(h @ w["router"].float(), dim=-1)
-    top, idx = torch.topk(probs, s.top_k, dim=-1)
-    if renorm:
-        top = top / top.sum(-1, keepdim=True)
-    out = mlp(h, w["shared"], m) if "shared" in w else torch.zeros_like(h)
-    for e in range(s.experts):
-        rows, slot = (idx == e).nonzero(as_tuple=True)
-        if rows.numel() == 0:
-            continue
-        ew = {"w_gate": w["we_gate"][e], "w_up": w["we_up"][e],
-              "w_down": w["we_down"][e]}
-        y = mlp(h[rows], ew, m)
-        out.index_add_(0, rows, y * top[rows, slot][:, None])
-    return out
-
-
-def _layer_weights(lw: dict, m: Math) -> dict:
-    out = {}
-    for key, val in lw.items():
-        if isinstance(val, dict):
-            out[key] = _layer_weights(val, m)
-        elif key in ("scale", "router"):
-            out[key] = val.float()
-        else:
-            out[key] = m.weight(val)
-    return out
 
 
 def logits(weights: dict, cfg: dict, seqs: list, rows: list,
            precision: str = "f32") -> list:
     """For each token sequence in `seqs` (1-D integer tensors on the
     weights' device) the float32 logits of the positions ``rows[i] =
-    (start, n)``: (n, V) each. One layer's weights are upcast at a time and
-    every sequence passes through it."""
-    s = Shape.of(cfg)
-    m = Math(precision)
-    eps, theta = cfg["rms_norm_eps"], float(cfg["rope_theta"])
-    renorm = bool(cfg.get("norm_topk_prob", False))
-    lens = [len(t) for t in seqs]
-    with exact_float32(), torch.no_grad():
-        xs = [weights["embed"][t].float() for t in seqs]
-        for lw_raw in weights["layers"]:
-            lw = _layer_weights(lw_raw, m)
-            x = torch.cat([x + attention(rmsnorm(x, lw["norm1"]["scale"],
-                                                 eps), lw["mix"], s, theta, m)
-                           for x in xs])
-            # the MLP is token by token: all sequences at once
-            h = rmsnorm(x, lw["norm2"]["scale"], eps)
-            x = x + (moe(h, lw["moe"], s, renorm, m) if "moe" in lw
-                     else mlp(h, lw["mlp"], m))
-            xs = list(x.split(lens))
-            del lw, x, h
-        head = m.weight(weights["unembed"].t())
-        out = []
-        for x, (a, n) in zip(xs, rows, strict=True):
-            h = rmsnorm(x[a:a + n], weights["final_norm"]["scale"], eps)
-            out.append(m.mm(h, head))
-        return out
+    (start, n)``: (n, V) each, by the configuration's family
+    (`registry.family`)."""
+    return registry.family(cfg).logits(weights, cfg, seqs, rows, precision)

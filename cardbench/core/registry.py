@@ -4,8 +4,10 @@ settings (``cells/<name>.json``: the offered rate of an open loop, the
 correctness limits) and a reader for every metric it reports
 (``metrics/<name>.py``, a module with ``read(record)``; a metric
 ``<name>.<mix>`` that has no file of its own is read by
-``metrics/<name>.py``). Adding a cell, a mix or a metric adds files and
-entries; no file here names one."""
+``metrics/<name>.py``) and the family of its configuration
+(``families/<model_type>.py``, by the file's published ``model_type``).
+Adding a cell, a mix, a metric or a block adds files and entries; no file
+here names one."""
 from __future__ import annotations
 
 import dataclasses
@@ -68,11 +70,25 @@ def reader_file(metric: str, bench_dir: Path = BENCH_DIR) -> Path:
     return path
 
 
-def reader(metric: str, bench_dir: Path = BENCH_DIR):
-    """The `read` function of the metric's file (`reader_file`)."""
-    path = reader_file(metric, bench_dir)
+def _load(path: Path, name: str):
     spec = importlib.util.spec_from_file_location(
-        "cardbench_metric_" + re.sub(r"\W", "_", metric), path)
+        "cardbench_" + re.sub(r"\W", "_", name), path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def reader(metric: str, bench_dir: Path = BENCH_DIR):
+    """The `read` function of the metric's file (`reader_file`)."""
+    return _load(reader_file(metric, bench_dir), "metric_" + metric).read
+
+
+def family(cfg: dict, bench_dir: Path = BENCH_DIR):
+    """The module of the configuration's family, ``families/<model_type>.py``
+    (its interface: ``families/__init__.py``)."""
+    mt = cfg["model_type"]
+    path = bench_dir / "families" / f"{mt}.py"
+    if mt.startswith("_") or not path.is_file():
+        known = sorted(f.stem for f in path.parent.glob("[!_]*.py"))
+        raise KeyError(f"no family for model_type {mt!r}; there are {known}")
+    return _load(path, "family_" + mt)

@@ -51,7 +51,7 @@ class Step:
 @dataclasses.dataclass
 class Record:
     """What a run saw; the metric readers take it."""
-    shape: object                # work.Shape of the configuration
+    shape: object                # the configuration's family's shape
     window: tuple                # (t0, t1), host seconds
     end: float                   # the end of the tail
     steps: list

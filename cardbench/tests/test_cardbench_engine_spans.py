@@ -8,11 +8,12 @@ import types
 import numpy as np
 import pytest
 
-from cardbench.core import profile, ranges, registry, serve, traffic, work
+from cardbench.core import profile, ranges, registry, serve, traffic
+from cardbench.families._decoder import Shape
 from cardbench.tools import spans as S
 
-SHAPE = work.Shape(layers=2, dense_layers=2, d=64, hq=4, hkv=2, hd=16,
-                   ff=128, vocab=256)
+SHAPE = Shape(layers=2, dense_layers=2, d=64, hq=4, hkv=2, hd=16, ff=128,
+              vocab=256)
 MS = 1_000_000                       # 1 ms in ns
 BASE = 100.0                         # perf_counter s at the trace's 0 ns
 

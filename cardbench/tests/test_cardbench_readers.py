@@ -5,9 +5,10 @@ import numpy as np
 import pytest
 
 from cardbench.core import profile, registry, serve, traffic, work
+from cardbench.families._decoder import Shape
 
-SHAPE = work.Shape(layers=2, dense_layers=2, d=64, hq=4, hkv=2, hd=16,
-                   ff=128, vocab=256)
+SHAPE = Shape(layers=2, dense_layers=2, d=64, hq=4, hkv=2, hd=16, ff=128,
+              vocab=256)
 
 
 def _req(due, stamps, max_new, deadline=2.0, plen=10):

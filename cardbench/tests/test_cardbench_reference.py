@@ -4,7 +4,7 @@ computes the port's model (a float32 forward of the same weights)."""
 import pytest
 import torch
 
-from cardbench.core import port, reference, registry, weights, work
+from cardbench.core import port, reference, registry, weights
 from cardbench.tests import tiny
 
 # (cell, configuration file): the dense cell, and a mixture of experts on
@@ -26,7 +26,7 @@ def _tree_shapes(tree, prefix=()):
 def test_weights_have_the_ports_tree(name, config):
     from repro_torch.models.model import params_shapes
     cfg = tiny.cell(name, config=config).config
-    ours = weights.make_weights(work.Shape.of(cfg), 3, "cpu")
+    ours = weights.make_weights(registry.family(cfg).shape(cfg), 3, "cpu")
     assert _tree_shapes(ours) == _tree_shapes(
         params_shapes(port.port_config(cfg)))
 
@@ -35,7 +35,7 @@ def test_weights_have_the_ports_tree(name, config):
 def test_reference_computes_the_ports_model(name, config):
     from repro_torch.models.model import forward
     cfg = tiny.cell(name, dtype="float32", config=config).config
-    w = weights.make_weights(work.Shape.of(cfg), 5, "cpu")
+    w = weights.make_weights(registry.family(cfg).shape(cfg), 5, "cpu")
     toks = torch.randint(0, 256, (1, 40), generator=torch.Generator()
                          .manual_seed(1))
     want, _ = forward(w, {"tokens": toks}, cfg=port.port_config(cfg),
@@ -64,7 +64,7 @@ def test_published_deepseek_gates_are_not_the_ports():
         port.port_config(published)
     cfg = tiny.cell("yi6b-docqa", dtype="float32",
                     config="deepseek-moe-16b").config
-    w = weights.make_weights(work.Shape.of(cfg), 5, "cpu")
+    w = weights.make_weights(registry.family(cfg).shape(cfg), 5, "cpu")
     toks = torch.randint(0, 256, (1, 40), generator=torch.Generator()
                          .manual_seed(1))
     port_logits, _ = forward(w, {"tokens": toks}, cfg=port.port_config(cfg),

@@ -2,8 +2,11 @@
 is taken without editing a file that is there. BENCHMARK.json keeps to the
 benchmark's contract."""
 import json
+import os
 import re
 import shutil
+import subprocess
+import sys
 
 from cardbench.core import registry
 
@@ -104,3 +107,97 @@ def test_a_metric_of_a_mix_is_read_by_its_base_reader():
     assert registry.reader_file("mfu.a-later-mix") == metrics / "mfu.py"
     assert registry.reader_file("out_tok_s") == metrics / "out_tok_s.py"
     assert registry.reader("idle_share.docqa") is not None
+
+
+# a block the harness has no family for: multi-query attention, one
+# key/value head for every query head whatever num_key_value_heads says
+MQA = '''"""Multi-query attention on the llama block."""
+import dataclasses
+
+from cardbench.families import _decoder
+
+small = _decoder.small
+
+
+def shape(cfg):
+    return dataclasses.replace(_decoder.Shape.of(cfg), hkv=1)
+
+
+def logits(weights, cfg, seqs, rows, precision="f32"):
+    return _decoder.logits(weights, dict(cfg, num_key_value_heads=1), seqs,
+                           rows, precision)
+
+
+def port_config(cfg):
+    return dataclasses.replace(_decoder.port_config(cfg), n_kv_heads=1)
+
+
+def engine_args(cfg):
+    return {}
+'''
+
+# run in the copy, which is the package `cardbench` there
+IN_THE_COPY = '''
+import time
+import torch
+from cardbench.core import cell as C, port, reference, registry, weights
+from cardbench.tests import tiny
+from repro_torch.models.model import forward
+c = registry.cell("mqa-chat")
+fam = registry.family(c.config)
+assert fam.__file__ == str(registry.BENCH_DIR / "families" / "mqa.py")
+s = fam.shape(c.config)
+assert (s.hq, s.hkv, s.kv_bytes_per_token) == (32, 1, 2 * 32 * 128 * 2)
+cfg = dict(fam.small(c.config), torch_dtype="float32")
+w = weights.make_weights(fam.shape(cfg), 5, "cpu")
+assert tuple(w["layers"][0]["mix"]["wk"].shape) == (64, 16)
+toks = torch.randint(0, 256, (1, 40),
+                     generator=torch.Generator().manual_seed(1))
+want, _ = forward(w, {"tokens": toks}, cfg=port.port_config(cfg),
+                  mode="train")
+got = reference.logits(w, cfg, [toks[0]], [(0, 40)])[0]
+torch.testing.assert_close(got, want[0], rtol=1e-4, atol=1e-4)
+tc = tiny.cell("mqa-chat")
+seed = 2**31 + 3
+out = C.measure(tc, C.Prepared(tc, seed, "cpu", time.perf_counter()),
+                seed=seed, seconds=3.0, trace=False, device="cpu")
+assert out["correct"], out["checks"]
+print("correct", out["checks"]["compared_tokens"]["value"])
+'''
+
+
+def test_a_new_block_is_taken_by_files_alone(tmp_path):
+    """A family file, a configuration, a cell and entries: the copy's
+    registry finds the family by the file's model_type, draws its weights,
+    and its reference computes the port's model at the small size; a whole
+    run of the cell cut small comes out correct."""
+    bench_dir = tmp_path / "cardbench"
+    shutil.copytree(registry.BENCH_DIR, bench_dir,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    before = {p: p.read_bytes() for p in bench_dir.rglob("*") if p.is_file()}
+    (bench_dir / "families" / "mqa.py").write_text(MQA)
+    cfg = registry.load_json(bench_dir / "configs" / "yi-6b.json")
+    cfg.update(name="yi-6b-mqa", model_type="mqa")
+    (bench_dir / "configs" / "yi-6b-mqa.json").write_text(json.dumps(cfg))
+    (bench_dir / "cells" / "mqa-chat.json").write_text(
+        (bench_dir / "cells" / "yi6b-chat.json").read_text())
+    bench = _bench()
+    bench["configs"].append(dict(bench["configs"][0], name="yi-6b-mqa",
+                                 file="cardbench/configs/yi-6b-mqa.json"))
+    bench["workloads"].append({"name": "mqa-chat", "config": "yi-6b-mqa",
+                               "traffic": "chat", "chips": 1,
+                               "why": "a test"})
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if "yi6b-chat" in m.get("workloads", ()):
+            m["workloads"].append("mqa-chat")
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    assert all(p.read_bytes() == b for p, b in before.items())
+
+    env = dict(os.environ,
+               PYTHONPATH=os.pathsep.join([str(tmp_path),
+                                           str(ROOT / "src")]))
+    out = subprocess.run([sys.executable, "-c", IN_THE_COPY], cwd=tmp_path,
+                         env=env, capture_output=True, text=True,
+                         timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.split()[0] == "correct"

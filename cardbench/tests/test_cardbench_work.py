@@ -5,8 +5,8 @@ from cardbench.core import registry, work
 
 
 def _shape(name):
-    return work.Shape.of(registry.load_json(
-        registry.BENCH_DIR / "configs" / f"{name}.json"))
+    cfg = registry.load_json(registry.BENCH_DIR / "configs" / f"{name}.json")
+    return registry.family(cfg).shape(cfg)
 
 
 def test_shapes_of_the_configurations():

@@ -1,6 +1,6 @@
 """A cell of the benchmark cut to a size the CPU runs in seconds: the same
-configuration keys, traffic and settings with small widths, few slots,
-short prompts and a short lead-in. For tests only."""
+configuration keys, traffic and settings with the widths of its family's
+``small``, few slots, short prompts and a short lead-in. For tests only."""
 from __future__ import annotations
 
 from cardbench.core import registry
@@ -25,12 +25,7 @@ def cell(name: str, dtype: str = "bfloat16",
                                   / f"{config}.json")
         if "n_routed_experts" in base:
             base = dict(base, norm_topk_prob=True)
-    cfg = dict(base, hidden_size=64, intermediate_size=96,
-               num_hidden_layers=3, num_attention_heads=4,
-               num_key_value_heads=2, vocab_size=256, torch_dtype=dtype)
-    if "n_routed_experts" in cfg:
-        cfg.update(moe_intermediate_size=32, n_routed_experts=8,
-                   num_experts_per_tok=2, n_shared_experts=1)
+    cfg = dict(registry.family(base).small(base), torch_dtype=dtype)
     cfg["engine"] = dict(cfg["engine"], max_batch=4, max_seq=256)
     mix = dict(c.traffic, lead_in_s=1.0,
                prompt_tokens=dict(c.traffic["prompt_tokens"], clip=[8, 64]),
