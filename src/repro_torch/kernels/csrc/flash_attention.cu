@@ -35,6 +35,10 @@
 // only on tiles that cross a boundary, and the CTAs are launched longest
 // first. Rows past the end load zeros and are not stored; the output goes
 // out through shared memory as 16-byte stores, through its own strides.
+// Head dim 192 (DeepSeek-V2's MLA, qk_nope 128 + qk_rope 64) is three whole
+// 128-byte atoms; its row of 24 16-byte chunks does not divide a pass of
+// 128 threads, so its Q loads and output stores walk the tile's chunks
+// flat (12 passes), where the other widths step whole rows a pass.
 // Head dims 48 and 96 (MLA's qk_nope + qk_rope, reduced and at full width)
 // are 96 and 192 bytes a row, no whole number of 128-byte swizzle atoms:
 // the tiles are padded to the next multiple of 64 columns inside shared
@@ -170,16 +174,30 @@ __device__ __forceinline__ void load_q_tile(uint32_t dst, const bf16* qb, Stride
                                             const tiles::FastDiv& sq, int r0, int rows_total,
                                             int tid) {
   constexpr int kChunks = padded_dim<D>() / 8;
-  constexpr int kStep = NT / kChunks;  // rows a pass
-  const int c = tid % kChunks;
+  if constexpr (NT % kChunks == 0) {
+    constexpr int kStep = NT / kChunks;  // rows a pass
+    const int c = tid % kChunks;
 #pragma unroll
-  for (int k = 0; k < ROWS / kStep; ++k) {
-    const int r = tid / kChunks + k * kStep;
-    const int pr = r0 + r;
-    const int head = sq(pr);
-    const bool in = pr < rows_total && c < D / 8;
-    const bf16* p = in ? qb + head * qs.h + (pr - head * sq.d) * qs.s + c * 8 : qb;
-    cp_async16(dst + sw128_offset(r, c, ROWS), p, in);
+    for (int k = 0; k < ROWS / kStep; ++k) {
+      const int r = tid / kChunks + k * kStep;
+      const int pr = r0 + r;
+      const int head = sq(pr);
+      const bool in = pr < rows_total && c < D / 8;
+      const bf16* p = in ? qb + head * qs.h + (pr - head * sq.d) * qs.s + c * 8 : qb;
+      cp_async16(dst + sw128_offset(r, c, ROWS), p, in);
+    }
+  } else {  // D 192: the tile's chunks flat
+    static_assert(ROWS * kChunks % NT == 0, "whole passes");
+#pragma unroll
+    for (int k = 0; k < ROWS * kChunks / NT; ++k) {
+      const int i = tid + k * NT;
+      const int r = i / kChunks, c = i % kChunks;
+      const int pr = r0 + r;
+      const int head = sq(pr);
+      const bool in = pr < rows_total && c < D / 8;
+      const bf16* p = in ? qb + head * qs.h + (pr - head * sq.d) * qs.s + c * 8 : qb;
+      cp_async16(dst + sw128_offset(r, c, ROWS), p, in);
+    }
   }
 }
 
@@ -205,6 +223,10 @@ __device__ __forceinline__ void wgmma_pv<64>(float (&o)[32], const uint32_t (&a)
 template <>
 __device__ __forceinline__ void wgmma_pv<128>(float (&o)[64], const uint32_t (&a)[4], uint64_t b) {
   wgmma_rs_n128(o, a, b);
+}
+template <>
+__device__ __forceinline__ void wgmma_pv<192>(float (&o)[96], const uint32_t (&a)[4], uint64_t b) {
+  wgmma_rs_n192(o, a, b);
 }
 template <>
 __device__ __forceinline__ void wgmma_pv<256>(float (&o)[128], const uint32_t (&a)[4], uint64_t b) {
@@ -484,20 +506,38 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   bar_sync_wg(wg);
   constexpr int kChunks = kDP / 8;
-  constexpr int kStep = 128 / kChunks;  // rows a pass
-  const int c = t % kChunks;
-  bf16* ob = o + b * os.b + hk * group * os.h + c * 8;
+  if constexpr (128 % kChunks == 0) {
+    constexpr int kStep = 128 / kChunks;  // rows a pass
+    const int c = t % kChunks;
+    bf16* ob = o + b * os.b + hk * group * os.h + c * 8;
 #pragma unroll
-  for (int k = 0; k < kBM / kStep; ++k) {
-    const int r = t / kChunks + k * kStep;
-    const int pr = w0 + r;
-    if (pr >= rows_total || c >= D / 8) break;
-    const int head = sq(pr);
-    uint4 val;
-    asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(val.x), "=r"(val.y), "=r"(val.z), "=r"(val.w)
-                 : "r"(q_s + sw128_offset(wg * kBM + r, c, kRows)));
-    *reinterpret_cast<uint4*>(ob + head * os.h + (pr - head * sq.d) * os.s) = val;
+    for (int k = 0; k < kBM / kStep; ++k) {
+      const int r = t / kChunks + k * kStep;
+      const int pr = w0 + r;
+      if (pr >= rows_total || c >= D / 8) break;
+      const int head = sq(pr);
+      uint4 val;
+      asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+                   : "=r"(val.x), "=r"(val.y), "=r"(val.z), "=r"(val.w)
+                   : "r"(q_s + sw128_offset(wg * kBM + r, c, kRows)));
+      *reinterpret_cast<uint4*>(ob + head * os.h + (pr - head * sq.d) * os.s) = val;
+    }
+  } else {  // D 192 (no padding columns): the tile's chunks flat
+    static_assert(kDP == D && kBM * kChunks % 128 == 0, "whole passes");
+    bf16* ob = o + b * os.b + hk * group * os.h;
+#pragma unroll
+    for (int k = 0; k < kBM * kChunks / 128; ++k) {
+      const int i = t + k * 128;
+      const int r = i / kChunks, c = i % kChunks;
+      const int pr = w0 + r;
+      if (pr >= rows_total) break;  // r grows with k
+      const int head = sq(pr);
+      uint4 val;
+      asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+                   : "=r"(val.x), "=r"(val.y), "=r"(val.z), "=r"(val.w)
+                   : "r"(q_s + sw128_offset(wg * kBM + r, c, kRows)));
+      *reinterpret_cast<uint4*>(ob + head * os.h + (pr - head * sq.d) * os.s + c * 8) = val;
+    }
   }
 }
 
@@ -624,8 +664,8 @@ constexpr int kRows = 64;  // packed query rows a CTA: four warps of 16
 constexpr int kThreads = 128;
 
 // Keys a K/V tile: 64, or 32 at D >= 96, where two 64-key stages would
-// leave room for one CTA an SM (D 96 and 128 take two at 32 keys; at D 256
-// one CTA takes 206 KB).
+// leave room for one CTA an SM (D 96 and 128 take two at 32 keys; at D 192
+// one CTA takes 153 KB, at D 256 206 KB).
 template <int D>
 __host__ __device__ constexpr int key_tile() {
   return D >= 96 ? 32 : 64;
@@ -736,7 +776,7 @@ __device__ __forceinline__ void load_q(float* dst, const float* qb, Strides qs,
 // Warp w owns the CTA's packed rows 16w .. 16w + 15; lane (g, t) = (lane /
 // 4, lane % 4) holds rows g and g + 8 of them, as the m16n8k8 fragments do.
 template <int D>
-__global__ void __launch_bounds__(kThreads, D >= 256 ? 1 : 2)
+__global__ void __launch_bounds__(kThreads, D >= 192 ? 1 : 2)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
                  Strides qs, Strides ks, Strides vs, Strides os, int group, tiles::FastDiv sq,
@@ -1027,6 +1067,8 @@ cudaError_t dispatch_f32(int d, const void* q, const void* k, const void* v, voi
       return f32tc::launch<96>(q, k, v, o, lse, st, b, hq, hkv, sq, sk, causal, window, q_offset, scale, vec, stream);
     case 128:
       return f32tc::launch<128>(q, k, v, o, lse, st, b, hq, hkv, sq, sk, causal, window, q_offset, scale, vec, stream);
+    case 192:
+      return f32tc::launch<192>(q, k, v, o, lse, st, b, hq, hkv, sq, sk, causal, window, q_offset, scale, vec, stream);
     case 256:
       return f32tc::launch<256>(q, k, v, o, lse, st, b, hq, hkv, sq, sk, causal, window, q_offset, scale, vec, stream);
     default:
@@ -1046,6 +1088,8 @@ cudaError_t dispatch_bf16(int d, const void* q, const void* k, const void* v, vo
       return tc::launch<96>(q, k, v, o, lse, st, b, hq, hkv, sq, sk, causal, window, q_offset, scale, stream);
     case 128:
       return tc::launch<128>(q, k, v, o, lse, st, b, hq, hkv, sq, sk, causal, window, q_offset, scale, stream);
+    case 192:
+      return tc::launch<192>(q, k, v, o, lse, st, b, hq, hkv, sq, sk, causal, window, q_offset, scale, stream);
     case 256:
       return tc::launch<256>(q, k, v, o, lse, st, b, hq, hkv, sq, sk, causal, window, q_offset, scale, stream);
     default:
@@ -1102,6 +1146,7 @@ extern "C" int repro_flash_selftest(const void* q, const void* k, const void* v,
     case 64: return (int)repro::tc::selftest<64>(q, k, v, sf, of, st);
     case 96: return (int)repro::tc::selftest<96>(q, k, v, sf, of, st);
     case 128: return (int)repro::tc::selftest<128>(q, k, v, sf, of, st);
+    case 192: return (int)repro::tc::selftest<192>(q, k, v, sf, of, st);
     case 256: return (int)repro::tc::selftest<256>(q, k, v, sf, of, st);
     default: return (int)cudaErrorInvalidValue;
   }

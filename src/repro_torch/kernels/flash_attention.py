@@ -23,7 +23,8 @@ from repro_torch.kernels.ref import (
     NEG_INF, attention_mask, flash_attention_lse_ref, flash_attention_ref,
 )
 
-HEAD_DIMS = (48, 64, 96, 128, 256)   # 48 and 96: MLA's qk_nope + qk_rope
+# 48, 96 and 192: MLA's qk_nope + qk_rope (reduced, MiniCPM3, DeepSeek-V2)
+HEAD_DIMS = (48, 64, 96, 128, 192, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -73,8 +74,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
     Any strides whose last axis is contiguous are taken as they are, so
     views of (B, S, H, D) model tensors need no copy. D must be 48, 64, 96,
-    128 or 256 (the bf16 kernel pads 48 and 96 to whole 64-column tiles in
-    shared memory, never in device memory) and Hq a multiple of Hkv. In
+    128, 192 or 256 (the bf16 kernel pads 48 and 96 to whole 64-column
+    tiles in shared memory, never in device memory) and Hq a multiple of
+    Hkv. In
     bfloat16 the kernel copies 16-byte chunks, so pointers and strides must
     be 16-byte aligned; in float32 it copies 16-byte chunks where they are
     and 4-byte ones where not.

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
+from repro_torch.obs.spans import model_range
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -68,10 +69,16 @@ def rope_freqs(head_dim: int, theta: float, device=None):
 
 def apply_rope(x, positions, theta: float):
     """x: (B, S, H, D); positions: (B, S) integer."""
-    d = x.shape[-1]
-    freqs = rope_freqs(d, theta, x.device)                # (d/2,)
+    return rotate(x, positions, rope_freqs(x.shape[-1], theta, x.device))
+
+
+def rotate(x, positions, freqs, scale: float = 1.0):
+    """x: (B, S, H, D) rotated on its split halves by ``positions`` (B, S)
+    times ``freqs`` (D/2,), with cos and sin times ``scale``."""
     ang = positions[..., None].float() * freqs            # (B, S, d/2)
     cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    if scale != 1.0:
+        cos, sin = cos * scale, sin * scale
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
@@ -304,24 +311,33 @@ def attention_layer(p, x, *, cfg: ModelConfig, mode: str, cache=None,
 
 
 def init_mla(gen, cfg: ModelConfig, device=None):
+    """MLA's leaves. ``q_lora_rank`` 0 (DeepSeek-V2-Lite's null) has no
+    query latent: one ``wq`` (d, heads * (nope + rope)) and no query
+    norm."""
     m = cfg.mla
     d = cfg.d_model
     dt = torch_dtype(cfg.dtype)
     qk_hd = m.qk_nope_head_dim + m.qk_rope_head_dim
     h = cfg.n_heads
-    return {
-        "wq_a": dense_init(gen, (d, m.q_lora_rank), dtype=dt, device=device),
-        "wq_b": dense_init(gen, (m.q_lora_rank, h * qk_hd), dtype=dt,
-                           device=device),
+    if m.q_lora_rank:
+        p = {"wq_a": dense_init(gen, (d, m.q_lora_rank), dtype=dt,
+                                device=device),
+             "wq_b": dense_init(gen, (m.q_lora_rank, h * qk_hd), dtype=dt,
+                                device=device)}
+    else:
+        p = {"wq": dense_init(gen, (d, h * qk_hd), dtype=dt, device=device)}
+    p.update({
         "wkv_a": dense_init(gen, (d, m.kv_lora_rank + m.qk_rope_head_dim),
                             dtype=dt, device=device),
         "wkv_b": dense_init(gen, (m.kv_lora_rank,
                                   h * (m.qk_nope_head_dim + m.v_head_dim)),
                             dtype=dt, device=device),
         "wo": dense_init(gen, (h * m.v_head_dim, d), dtype=dt, device=device),
-        "q_norm": init_rmsnorm(m.q_lora_rank, device),
-        "kv_norm": init_rmsnorm(m.kv_lora_rank, device),
-    }
+    })
+    if m.q_lora_rank:
+        p["q_norm"] = init_rmsnorm(m.q_lora_rank, device)
+    p["kv_norm"] = init_rmsnorm(m.kv_lora_rank, device)
+    return p
 
 
 def init_mla_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
@@ -337,7 +353,7 @@ def init_mla_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
 
 
 def mla_layer(p, x, *, cfg: ModelConfig, mode: str, cache=None, pos=None,
-              positions=None):
+              positions=None, block=None):
     """MLA with the compressed latent cache (per token ``kv_lora_rank +
     qk_rope_head_dim`` values instead of ``2 * H * head_dim``).
 
@@ -345,11 +361,16 @@ def mla_layer(p, x, *, cfg: ModelConfig, mode: str, cache=None, pos=None,
     flash kernel's at head_dim ``qk_nope + qk_rope`` with V zero-padded to
     that width (as the JAX package pads it). Decode is the weight-absorbed
     latent form in float32: the cache is never expanded to per-head K/V.
-    The cache tensors are updated in place. Returns (out, cache')."""
+    ``block`` (`models.block.Block`) gives a published rotary scaling of
+    the rope dims. The cache tensors are updated in place. Returns (out,
+    cache')."""
     b, s, _ = x.shape
     positions = mla_positions(x, mode, pos, positions)
-    cq, ckv, krope = mla_latents(p, x, cfg=cfg, positions=positions)
-    q_nope, q_rope = mla_queries(cq, p["wq_b"], cfg=cfg, positions=positions)
+    cq, ckv, krope = mla_latents(p, x, cfg=cfg, positions=positions,
+                                 block=block)
+    wq = p["wq_b"] if cfg.mla.q_lora_rank else p["wq"]
+    q_nope, q_rope = mla_queries(cq, wq, cfg=cfg, positions=positions,
+                                 block=block)
 
     new_cache = None
     if mode == "decode":
@@ -359,14 +380,14 @@ def mla_layer(p, x, *, cfg: ModelConfig, mode: str, cache=None, pos=None,
         update_cache_seq(cache["krope"], krope, pos)
         new_cache = cache
         out = mla_absorbed_decode(p["wkv_b"], q_nope, q_rope, cache["ckv"],
-                                  cache["krope"], pos, cfg=cfg)
+                                  cache["krope"], pos, cfg=cfg, block=block)
     else:
         if mode == "prefill" and cache is not None:
             cache["ckv"][:, :s] = ckv
             cache["krope"][:, :s] = krope
             new_cache = cache
         out = mla_prefill_attention(p["wkv_b"], q_nope, q_rope, ckv, krope,
-                                    cfg=cfg)
+                                    cfg=cfg, block=block)
     return out.reshape(b, s, -1) @ p["wo"], new_cache
 
 
@@ -382,71 +403,96 @@ def mla_positions(x, mode: str, pos, positions):
     return torch.arange(s, device=x.device)[None, :].expand(b, s)
 
 
-def mla_latents(p, x, *, cfg: ModelConfig, positions):
-    """(the normed query latent (B, S, q_lora_rank), the normed KV latent
-    (B, S, kv_lora_rank), the rotated shared rope key (B, S, rope_dim))."""
+def mla_rope(x, positions, cfg: ModelConfig, block=None):
+    """The MLA rope dims of x (B, S, H, rope) rotated: plain, or with the
+    published rotary scaling of ``block``."""
+    scaled = block.rope(x.shape[-1], cfg.rope_theta, x.device) \
+        if block is not None else None
+    if scaled is None:
+        return apply_rope(x, positions, cfg.rope_theta)
+    freqs, scale = scaled
+    return rotate(x, positions, freqs, scale)
+
+
+def mla_softmax_scale(cfg: ModelConfig, block=None) -> float:
+    """``(nope + rope)^-1/2``, times a rotary scaling's factor."""
     m = cfg.mla
-    cq = rmsnorm(p["q_norm"], x @ p["wq_a"])
+    scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    return scale if block is None else scale * block.softmax_factor
+
+
+def mla_latents(p, x, *, cfg: ModelConfig, positions, block=None):
+    """(the normed query latent (B, S, q_lora_rank), or x itself without
+    q-LoRA; the normed KV latent (B, S, kv_lora_rank); the rotated shared
+    rope key (B, S, rope_dim))."""
+    m = cfg.mla
+    cq = rmsnorm(p["q_norm"], x @ p["wq_a"]) if m.q_lora_rank else x
     ckv, krope = (x @ p["wkv_a"]).split([m.kv_lora_rank,
                                          m.qk_rope_head_dim], dim=-1)
     ckv = rmsnorm(p["kv_norm"], ckv)
-    krope = apply_rope(krope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+    krope = mla_rope(krope[:, :, None, :], positions, cfg, block)[:, :, 0]
     return cq, ckv, krope
 
 
-def mla_queries(cq, wq_b, *, cfg: ModelConfig, positions):
+def mla_queries(cq, wq_b, *, cfg: ModelConfig, positions, block=None):
     """(q_nope, rotated q_rope), each (B, S, heads, dim), for the heads
-    whose columns ``wq_b`` holds."""
+    whose columns ``wq_b`` (or without q-LoRA ``wq``) holds."""
     m = cfg.mla
     b, s, _ = cq.shape
     qk_hd = m.qk_nope_head_dim + m.qk_rope_head_dim
     q = (cq @ wq_b).view(b, s, -1, qk_hd)
     q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
-    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+    return q_nope, mla_rope(q_rope, positions, cfg, block)
 
 
 def mla_absorbed_decode(wkv_b, q_nope, q_rope, ckv_cache, krope_cache, pos,
-                        *, cfg: ModelConfig):
+                        *, cfg: ModelConfig, block=None):
     """The weight-absorbed decode in float32 for the heads of ``q_nope``
     (B, 1, heads, nope) and ``wkv_b``'s columns, over whole latent caches
     (B, T, rank) whose slots up to ``pos`` are valid. Returns (B, 1, heads,
-    v_head_dim) in the queries' dtype."""
+    v_head_dim) in the queries' dtype. Ranges: ``model.mla.expand`` (the
+    queries absorbed into the latent), ``model.mla.attend``."""
     m = cfg.mla
     dn, dv = m.qk_nope_head_dim, m.v_head_dim
-    scale = 1.0 / math.sqrt(dn + m.qk_rope_head_dim)
+    scale = mla_softmax_scale(cfg, block)
     h = q_nope.shape[2]
     f32 = torch.float32
-    wkv = wkv_b.view(m.kv_lora_rank, h, dn + dv).float()
-    q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope.float(), wkv[..., :dn])
-    ckv_f = ckv_cache.to(f32)
-    logits = (torch.einsum("bqhr,bkr->bhqk", q_lat, ckv_f)
-              + torch.einsum("bqhd,bkd->bhqk", q_rope.float(),
-                             krope_cache.to(f32))) * scale
-    t = ckv_f.shape[1]
-    posv = torch.as_tensor(pos, device=q_nope.device).reshape(-1, 1)
-    valid = (torch.arange(t, device=q_nope.device)[None, :] <= posv)
-    logits = logits.masked_fill(~valid[:, None, None, :], -1e30)
-    probs = torch.softmax(logits, dim=-1)
-    out_lat = torch.einsum("bhqk,bkr->bqhr", probs, ckv_f)
-    return torch.einsum("bqhr,rhd->bqhd", out_lat,
-                        wkv[..., dn:]).to(q_nope.dtype)
+    with model_range("model.mla.expand"):
+        wkv = wkv_b.view(m.kv_lora_rank, h, dn + dv).float()
+        q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope.float(), wkv[..., :dn])
+    with model_range("model.mla.attend"):
+        ckv_f = ckv_cache.to(f32)
+        logits = (torch.einsum("bqhr,bkr->bhqk", q_lat, ckv_f)
+                  + torch.einsum("bqhd,bkd->bhqk", q_rope.float(),
+                                 krope_cache.to(f32))) * scale
+        t = ckv_f.shape[1]
+        posv = torch.as_tensor(pos, device=q_nope.device).reshape(-1, 1)
+        valid = (torch.arange(t, device=q_nope.device)[None, :] <= posv)
+        logits = logits.masked_fill(~valid[:, None, None, :], -1e30)
+        probs = torch.softmax(logits, dim=-1)
+        out_lat = torch.einsum("bhqk,bkr->bqhr", probs, ckv_f)
+        return torch.einsum("bqhr,rhd->bqhd", out_lat,
+                            wkv[..., dn:]).to(q_nope.dtype)
 
 
 def mla_prefill_attention(wkv_b, q_nope, q_rope, ckv, krope, *,
-                          cfg: ModelConfig):
+                          cfg: ModelConfig, block=None):
     """Causal attention of the heads of ``q_nope`` (and ``wkv_b``'s
     columns) over the expanded latent: the flash kernel at head_dim
     ``nope + rope``, V zero-padded to it. Returns (B, S, heads,
-    v_head_dim)."""
+    v_head_dim). Ranges: ``model.mla.expand`` (the latent's up-projection
+    to per-head keys and values), ``model.mla.attend`` (flash)."""
     m = cfg.mla
     dn, dr, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
     qk_hd = dn + dr
     b, s, h, _ = q_nope.shape
-    kv_up = (ckv @ wkv_b).view(b, s, h, dn + dv)
-    k_nope, v = kv_up.split([dn, dv], dim=-1)
-    q_full = torch.cat([q_nope, q_rope], dim=-1)
-    k_full = torch.cat([k_nope, krope[:, :, None, :].expand(b, s, h, dr)],
-                       dim=-1)
-    vp = F.pad(v, (0, qk_hd - dv))
-    return attn_op(q_full, k_full, vp, causal=True, window=0,
-                   scale=1.0 / math.sqrt(qk_hd))[..., :dv]
+    with model_range("model.mla.expand"):
+        kv_up = (ckv @ wkv_b).view(b, s, h, dn + dv)
+        k_nope, v = kv_up.split([dn, dv], dim=-1)
+        q_full = torch.cat([q_nope, q_rope], dim=-1)
+        k_full = torch.cat([k_nope,
+                            krope[:, :, None, :].expand(b, s, h, dr)], dim=-1)
+        vp = F.pad(v, (0, qk_hd - dv))
+    with model_range("model.mla.attend"):
+        return attn_op(q_full, k_full, vp, causal=True, window=0,
+                       scale=mla_softmax_scale(cfg, block))[..., :dv]

@@ -226,12 +226,16 @@ def _global_rows(x, b: int, ctx, dim: int = 0):
 
 
 def _hidden(params, batch, *, cfg: ModelConfig, mode: str, cache, pos,
-            moe_dispatch: str, remat: bool, ctx):
+            moe_dispatch: str, remat: bool, ctx, block=None):
     """`hidden_states` at the residual's layout: (x, cache', aux, the
     context of the forward). Under a mesh the context is
     ``ctx.sequence_parallel(S)``: where it is ``seq_sharded``, x is this
     rank's (B_local, S/m, D) slice of the sequence (the encoder, which the
-    JAX package does not shard, runs whole first)."""
+    JAX package does not shard, runs whole first). ``block``: the
+    published settings `models.block.Block` (None: the JAX package's
+    model)."""
+    if block is not None:
+        block.check(cfg)
     if PAR.is_sharded(ctx):
         b = batch["tokens"].shape[0]
         batch, pos = _local_batch(batch, ctx), _local_pos(pos, b, ctx)
@@ -247,14 +251,14 @@ def _hidden(params, batch, *, cfg: ModelConfig, mode: str, cache, pos,
     x, new_cache, aux = T.run_stack(
         params["layers"], x, cfg=cfg, mode=mode, cache=cache, pos=pos,
         positions=batch.get("positions"), moe_dispatch=moe_dispatch,
-        enc_out=enc_out, remat=remat, ctx=ctx)
+        enc_out=enc_out, remat=remat, ctx=ctx, block=block)
     x = L.rmsnorm({"scale": final_scale}, x, cfg.norm_eps)
     return x, new_cache, aux, ctx
 
 
 def hidden_states(params, batch, *, cfg: ModelConfig, mode: str = "train",
                   cache=None, pos=None, moe_dispatch: str = "dense",
-                  remat: bool = False, ctx=None):
+                  remat: bool = False, ctx=None, block=None):
     """`forward` without its head: (the final normed hidden states (B, S,
     D), cache', aux), so that a caller runs the head on the rows it wants;
     aux is `transformer.run_stack`'s (the MoE load-balance loss). Under a
@@ -263,7 +267,7 @@ def hidden_states(params, batch, *, cfg: ModelConfig, mode: str = "train",
     sequence."""
     x, new_cache, aux, ctx = _hidden(
         params, batch, cfg=cfg, mode=mode, cache=cache, pos=pos,
-        moe_dispatch=moe_dispatch, remat=remat, ctx=ctx)
+        moe_dispatch=moe_dispatch, remat=remat, ctx=ctx, block=block)
     if ctx is not None:
         from repro_torch.models import tp as TP
         x = TP.whole_seq(x, ctx)
@@ -271,7 +275,8 @@ def hidden_states(params, batch, *, cfg: ModelConfig, mode: str = "train",
 
 
 def forward(params, batch, *, cfg: ModelConfig, mode: str = "train",
-            cache=None, pos=None, moe_dispatch: str = "dense", ctx=None):
+            cache=None, pos=None, moe_dispatch: str = "dense", ctx=None,
+            block=None):
     """batch: {"tokens": (B, S) integer [, "positions": (B, S), or (3, B,
     S) for M-RoPE] [, "vision_embeds": (B, n, D) for a VLM] [,
     "audio_frames": (B, S_enc, D) for an encoder-decoder model, but at
@@ -280,15 +285,18 @@ def forward(params, batch, *, cfg: ModelConfig, mode: str = "train",
     Returns (logits (B, S, V) float32, cache'). The cache is updated in
     place. ``moe_dispatch`` picks the MoE layers' dispatch, "dense" or
     "capacity", as the JAX package's ``ParallelContext.moe_dispatch``; a
-    ``ctx`` gives it instead. The MoE load-balance loss is `loss_fn`'s
-    (serving ignores it, as the JAX engine does).
+    ``ctx`` gives it instead. ``block`` holds published settings the
+    config does not (`models.block.Block`: the MoE gate rule, MLA's rotary
+    scaling). The MoE load-balance loss is `loss_fn`'s (serving ignores it,
+    as the JAX engine does).
 
     Under a mesh (``ctx``) the parameters and cache are this rank's shards
     and the batch is global: each rank runs its rows (their whole
     sequence) and the logits of every row are gathered."""
     x, new_cache, _ = hidden_states(params, batch, cfg=cfg, mode=mode,
                                     cache=cache, pos=pos,
-                                    moe_dispatch=moe_dispatch, ctx=ctx)
+                                    moe_dispatch=moe_dispatch, ctx=ctx,
+                                    block=block)
     logits = lm_head(params, x, cfg, ctx)
     return _global_rows(logits, batch["tokens"].shape[0], ctx), new_cache
 
@@ -337,7 +345,8 @@ def ce_from_hidden(params, x, labels, cfg: ModelConfig, ctx=None):
 
 
 def loss_fn(params, batch, *, cfg: ModelConfig, aux_weight: float = 0.01,
-            moe_dispatch: str = "dense", remat: bool = False, ctx=None):
+            moe_dispatch: str = "dense", remat: bool = False, ctx=None,
+            block=None):
     """Mean next-token cross-entropy over the labels >= 0, plus
     ``aux_weight`` times the MoE load-balance loss. batch: `forward`'s
     train batch with ``labels`` (B, S). ``remat`` checkpoints each layer
@@ -349,7 +358,7 @@ def loss_fn(params, batch, *, cfg: ModelConfig, aux_weight: float = 0.01,
     x, _, aux, fctx = _hidden(params, batch, cfg=cfg, mode="train",
                               cache=None, pos=None,
                               moe_dispatch=moe_dispatch, remat=remat,
-                              ctx=ctx)
+                              ctx=ctx, block=block)
     labels, b = batch["labels"], batch["tokens"].shape[0]
     if PAR.is_sharded(ctx):
         labels = ctx.shard_batch(labels)
@@ -415,7 +424,7 @@ def input_specs(cfg: ModelConfig, shape, dtype=torch.bfloat16):
 
 
 def prefill(params, batch, cache, *, cfg: ModelConfig, last=-1,
-            moe_dispatch: str = "dense", ctx=None):
+            moe_dispatch: str = "dense", ctx=None, block=None):
     """Run the prompt through the stack and fill the cache; the head runs
     on row ``last`` alone: an int, or a (B,) index tensor, one position a
     row (the engine's bucket prefill passes the prompt's last token, as
@@ -428,7 +437,7 @@ def prefill(params, batch, cache, *, cfg: ModelConfig, last=-1,
     x, new_cache, _, fctx = _hidden(params, batch, cfg=cfg, mode="prefill",
                                     cache=cache, pos=None,
                                     moe_dispatch=moe_dispatch, remat=False,
-                                    ctx=ctx)
+                                    ctx=ctx, block=block)
     b = batch["tokens"].shape[0]
     if isinstance(last, torch.Tensor) and last.ndim:
         last = last.to(x.device).long()
@@ -457,7 +466,8 @@ def _row_of_slices(x, last, ctx):
 
 
 def decode_step(params, tokens, cache, pos, *, cfg: ModelConfig,
-                moe_dispatch: str = "dense", batch_extras=None, ctx=None):
+                moe_dispatch: str = "dense", batch_extras=None, ctx=None,
+                block=None):
     """One decode step. tokens: (B, 1); pos: int or (B,) current positions
     (for M-RoPE all three streams take ``pos``, as in the JAX package);
     ``batch_extras`` joins the batch (an encoder-decoder model's frames are
@@ -475,7 +485,8 @@ def decode_step(params, tokens, cache, pos, *, cfg: ModelConfig,
                 1, -1, 1).expand(3, b, 1)
     logits, new_cache = forward(params, batch, cfg=cfg,
                                 mode="decode", cache=cache, pos=pos,
-                                moe_dispatch=moe_dispatch, ctx=ctx)
+                                moe_dispatch=moe_dispatch, ctx=ctx,
+                                block=block)
     return logits[:, -1], new_cache
 
 

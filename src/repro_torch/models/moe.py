@@ -54,8 +54,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import block as BL
 from repro_torch.models import parallel as PAR
 from repro_torch.models.layers import dense_init, init_mlp, mlp, torch_dtype
+from repro_torch.obs.spans import model_range
 
 DISPATCHES = ("dense", "capacity", "ep_a2a")
 
@@ -78,12 +80,24 @@ def init_moe(gen, cfg: ModelConfig, device=None):
     return params
 
 
-def router_probs(p, x, cfg: ModelConfig):
+def router_probs(p, x, cfg: ModelConfig, block=None):
     """(tokens, E) routing probabilities in float32, and the top-k gates
-    (renormalised to sum to one) and expert ids."""
+    (renormalised to sum to one, or by ``block``'s published rule,
+    `models.block.Block.gates`) and expert ids."""
     probs = torch.softmax(x.float() @ p["router"], dim=-1)
     topv, topi = torch.topk(probs, cfg.top_k, dim=-1)
-    return probs, topv / topv.sum(dim=-1, keepdim=True), topi
+    return probs, BL.of(block).gates(topv), topi
+
+
+def expert_rows(cfg: ModelConfig, dispatch: str, b: int, s: int,
+                capacity_factor: float = 1.25) -> int:
+    """Token-expert rows one MoE layer's dispatch computes for a (b, s)
+    batch on one device: every token through every expert (dense), or
+    each row's (E, C) buffer (capacity; ep_a2a without a mesh)."""
+    e = cfg.n_experts
+    if dispatch == "dense":
+        return b * s * e
+    return b * e * int(math.ceil(cfg.top_k * s / e * capacity_factor))
 
 
 def _act(cfg: ModelConfig):
@@ -165,7 +179,7 @@ def _finish(out, p, x, cfg: ModelConfig, ctx, x_in=None):
     return out + (TP.sum_partials(sh, ctx, dt) if sh_partial else sh)
 
 
-def _route(p, x, cfg: ModelConfig, ctx, partial: bool):
+def _route(p, x, cfg: ModelConfig, ctx, partial: bool, block=None):
     """Route x (B, S, D): (the tokens as the experts take them (B, S', D),
     the top-k gates (B, S', k) float32 and ids (B, S', k), the aux loss).
     Where ``partial`` (this rank's expert columns: a partial sum over
@@ -179,7 +193,7 @@ def _route(p, x, cfg: ModelConfig, ctx, partial: bool):
     if PAR.is_sharded(ctx):
         router, = TP.seq_leaves(ctx, router)
     probs, topv, topi = router_probs({"router": router}, x.reshape(b * s, d),
-                                     cfg)
+                                     cfg, block)
     aux = _aux_loss(probs, topi, cfg.n_experts, ctx)
     topv, topi = topv.view(b, s, k), topi.view(b, s, k)
     if not partial:
@@ -197,41 +211,47 @@ def _seq_whole(cfg: ModelConfig, ctx) -> bool:
                                                                     ctx)
 
 
-def moe_layer(p, x, *, cfg: ModelConfig, ctx=None):
-    """Dense dispatch. x: (B, S, D) -> (out, {"moe_aux_loss"})."""
+def moe_layer(p, x, *, cfg: ModelConfig, ctx=None, block=None):
+    """Dense dispatch. x: (B, S, D) -> (out, {"moe_aux_loss"}). Ranges:
+    ``model.moe.route``, ``model.moe.experts``, ``model.moe.shared``."""
     if _seq_whole(cfg, ctx):
         from repro_torch.models import tp as TP
         return TP.on_whole_sequence(
-            lambda xw, c: moe_layer(p, xw, cfg=cfg, ctx=c), x, ctx)
+            lambda xw, c: moe_layer(p, xw, cfg=cfg, ctx=c, block=block), x,
+            ctx)
     partial = _f_split(cfg, ctx)
-    xin, topv, topi, aux = _route(p, x, cfg, ctx, partial)
-    b, s, d = xin.shape
-    k, e = cfg.top_k, cfg.n_experts
-    # combine weights (tokens, E), zero outside the top-k, in x's dtype
-    comb = topv.new_zeros(b * s, e).scatter(
-        1, topi.reshape(b * s, k), topv.reshape(b * s, k)).to(x.dtype)
-    if partial:      # this rank's F columns: a partial sum over model
-        comb = comb.float()
-    expert_out = _experts(p, xin.reshape(b * s, d), cfg,
-                          wide=partial)                      # (E, T, D)
-    out = torch.einsum("etd,te->td", expert_out, comb).reshape(b, s, d)
-    out = _finish(out, p, x, cfg, ctx, xin if partial else None)
+    with model_range("model.moe.route"):
+        xin, topv, topi, aux = _route(p, x, cfg, ctx, partial, block)
+        b, s, d = xin.shape
+        k, e = cfg.top_k, cfg.n_experts
+        # combine weights (tokens, E), zero outside the top-k, in x's dtype
+        comb = topv.new_zeros(b * s, e).scatter(
+            1, topi.reshape(b * s, k), topv.reshape(b * s, k)).to(x.dtype)
+        if partial:      # this rank's F columns: a partial sum over model
+            comb = comb.float()
+    with model_range("model.moe.experts"):
+        expert_out = _experts(p, xin.reshape(b * s, d), cfg,
+                              wide=partial)                  # (E, T, D)
+        out = torch.einsum("etd,te->td", expert_out, comb).reshape(b, s, d)
+    with model_range("model.moe.shared"):
+        out = _finish(out, p, x, cfg, ctx, xin if partial else None)
     return out, {"moe_aux_loss": aux}
 
 
 def moe_layer_capacity(p, x, *, cfg: ModelConfig,
-                       capacity_factor: float = 1.25, ctx=None):
+                       capacity_factor: float = 1.25, ctx=None, block=None):
     """Capacity dispatch, packed per row. x: (B, S, D) -> (out,
     {"moe_aux_loss"})."""
     if _seq_whole(cfg, ctx):
         from repro_torch.models import tp as TP
         return TP.on_whole_sequence(
             lambda xw, c: moe_layer_capacity(
-                p, xw, cfg=cfg, capacity_factor=capacity_factor, ctx=c),
+                p, xw, cfg=cfg, capacity_factor=capacity_factor, ctx=c,
+                block=block),
             x, ctx)
     partial = _f_split(cfg, ctx)
     x_res = x
-    x, topv, topi, aux = _route(p, x, cfg, ctx, partial)
+    x, topv, topi, aux = _route(p, x, cfg, ctx, partial, block)
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     cap = int(math.ceil(k * s / e * capacity_factor))
@@ -279,7 +299,7 @@ def _local_experts(p, cfg: ModelConfig, ctx):
 
 
 def moe_layer_ep_a2a(p, x, *, cfg: ModelConfig, ctx=None,
-                     capacity_factor: float = 1.25):
+                     capacity_factor: float = 1.25, block=None):
     """Expert-parallel MoE with explicit all-to-alls (see the module
     docstring). x: this rank's (B, S, D) rows -> (out, {"moe_aux_loss"})."""
     e, k = cfg.n_experts, cfg.top_k
@@ -288,9 +308,10 @@ def moe_layer_ep_a2a(p, x, *, cfg: ModelConfig, ctx=None,
         # the JAX package's semantics: dense dispatch on a mesh whose model
         # axis the experts do not divide, capacity dispatch without one
         if PAR.is_sharded(ctx) and m > 1:
-            return moe_layer(p, x, cfg=cfg, ctx=ctx)
+            return moe_layer(p, x, cfg=cfg, ctx=ctx, block=block)
         return moe_layer_capacity(p, x, cfg=cfg,
-                                  capacity_factor=capacity_factor)
+                                  capacity_factor=capacity_factor,
+                                  block=block)
     b, s, d = x.shape
     ma = ctx.model_axis
     # under sequence parallelism x is this rank's slice already
@@ -311,7 +332,7 @@ def moe_layer_ep_a2a(p, x, *, cfg: ModelConfig, ctx=None,
     xt = xl.reshape(tl, d)
     probs = torch.softmax(xt.float() @ router, dim=-1)
     topv, topi = torch.topk(probs, k, dim=-1)
-    topv = (topv / topv.sum(-1, keepdim=True)).to(x.dtype)
+    topv = BL.of(block).gates(topv).to(x.dtype)
     flat_e = topi.reshape(tl * k)
     flat_w = topv.reshape(tl * k)
     order = torch.argsort(flat_e, stable=True)
@@ -346,15 +367,16 @@ def moe_layer_ep_a2a(p, x, *, cfg: ModelConfig, ctx=None,
     return out, {"moe_aux_loss": aux}
 
 
-def moe_layer_expert_parallel(p, x, *, cfg: ModelConfig, ctx=None):
+def moe_layer_expert_parallel(p, x, *, cfg: ModelConfig, ctx=None,
+                              block=None):
     """The constraint form: the expert dim over the model axis where it
     divides, every token through this rank's experts, summed over model;
     else `moe_layer`. The math is `moe_layer`'s."""
     e = cfg.n_experts
     if not PAR.is_sharded(ctx) or ctx.model_size == 1 \
             or e % ctx.model_size:
-        return moe_layer(p, x, cfg=cfg, ctx=ctx)
-    xin, topv, topi, aux = _route(p, x, cfg, ctx, True)
+        return moe_layer(p, x, cfg=cfg, ctx=ctx, block=block)
+    xin, topv, topi, aux = _route(p, x, cfg, ctx, True, block)
     b, s, d = xin.shape
     k = cfg.top_k
     comb = topv.new_zeros(b * s, e).scatter(

@@ -753,7 +753,13 @@ def mla_layer(p, x, *, cfg: ModelConfig, ctx: ParallelContext, mode: str,
     the rank's products together (`enter`). The cache's ``ckv``/``krope``
     shards (their last dims over the model axis) take the rank's part of
     the new rows; a decode gathers them whole (one all-gather a layer a
-    step), since the absorbed decode reads every slot's whole latent."""
+    step), since the absorbed decode reads every slot's whole latent. An
+    MLA without q-LoRA (``q_lora_rank`` 0: one ``wq``, no query latent)
+    has no sharded form here, and is refused."""
+    if not cfg.mla.q_lora_rank:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: the sharded MLA mixer takes q-LoRA (wq_a, "
+            f"wq_b); q_lora_rank 0 has no sharded form")
     ma = _ma(ctx)
     if ctx.seq_sharded:
         b, s = x.shape[0], x.shape[1] * ctx.model_size

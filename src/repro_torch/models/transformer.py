@@ -27,6 +27,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import block as BL
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as RG
@@ -154,15 +155,21 @@ def init_layer_cache(spec: LayerSpec, cfg: ModelConfig, batch: int,
 def apply_layer(spec: LayerSpec, p, x, *, cfg: ModelConfig, mode: str,
                 cache=None, pos=None, positions=None,
                 moe_dispatch: str = "dense", enc_out=None, ctx=None,
-                cspec=None):
+                cspec=None, block=None):
     """Pre-norm residual block. Returns (x, cache', aux): aux holds the
     MoE layer's ``moe_aux_loss``, and is empty for other layers. A cross
     layer attends to ``enc_out`` (train, prefill) or to its cached
     ``cross_k``/``cross_v`` (decode); prefill replaces those cache entries
-    with the encoder's keys and values, at the encoder's own length. Under
-    a mesh (``ctx``) the layer runs on this rank's shards, ``cspec`` being
+    with the encoder's keys and values, at the encoder's own length.
+    ``block`` (`models.block.Block`) holds published settings the config
+    does not: the MoE gate rule, an MLA layer's rotary scaling. Under a
+    mesh (``ctx``) the layer runs on this rank's shards, ``cspec`` being
     its cache's specs (None: the cache is held whole)."""
     if ctx is not None and ctx.mesh is not None:
+        if block is not None and block != BL.DEFAULT:
+            raise NotImplementedError(
+                f"{cfg.arch_id}: the sharded layers take no published "
+                f"block settings ({block})")
         return _apply_layer_sharded(spec, p, x, cfg=cfg, mode=mode,
                                     cache=cache, pos=pos,
                                     positions=positions, enc_out=enc_out,
@@ -177,7 +184,7 @@ def apply_layer(spec: LayerSpec, p, x, *, cfg: ModelConfig, mode: str,
         elif spec.kind == "mla":
             mix, new_cache = L.mla_layer(p["mix"], h, cfg=cfg, mode=mode,
                                          cache=cache, pos=pos,
-                                         positions=positions)
+                                         positions=positions, block=block)
         elif spec.kind == "rec":
             mix, new_cache = RG.rglru_layer(p["mix"], h, cfg=cfg, mode=mode,
                                             cache=cache)
@@ -210,7 +217,8 @@ def apply_layer(spec: LayerSpec, p, x, *, cfg: ModelConfig, mode: str,
     aux = {}
     with model_range("model.mlp"):
         if spec.moe:
-            out, aux = MOE.moe_fn(moe_dispatch)(p["moe"], h, cfg=cfg)
+            out, aux = MOE.moe_fn(moe_dispatch)(p["moe"], h, cfg=cfg,
+                                                block=block)
         else:
             out = L.mlp(p["mlp"], h, cfg.activation)
     return x + out, new_cache, aux
@@ -307,7 +315,7 @@ def init_stack_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
 
 def run_stack(layers, x, *, cfg: ModelConfig, mode: str, cache=None,
               pos=None, positions=None, moe_dispatch: str = "dense",
-              enc_out=None, remat: bool = False, ctx=None):
+              enc_out=None, remat: bool = False, ctx=None, block=None):
     """Apply every layer in order. Returns (x, cache', aux): the cache is
     updated in place and returned for prefill and decode; aux holds
     ``moe_aux_loss``, summed over the layers as the JAX package sums it
@@ -317,7 +325,8 @@ def run_stack(layers, x, *, cfg: ModelConfig, mode: str, cache=None,
     a mesh (``ctx``) the layers run on this rank's shards; a cache with
     ``specs`` (`model.init_cache` under a mesh) says how each layer's cache
     is split; with ``ctx.seq_sharded`` x (and so each checkpointed layer
-    input) is this rank's slice of the sequence."""
+    input) is this rank's slice of the sequence. ``block``: see
+    `apply_layer`."""
     specs = block_program(cfg).layers()
     aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     layer_remat = remat and mode == "train"
@@ -325,7 +334,7 @@ def run_stack(layers, x, *, cfg: ModelConfig, mode: str, cache=None,
     for i, (spec, p) in enumerate(zip(specs, layers, strict=True)):
         c = cache[i] if cache is not None else None
         kw = dict(cfg=cfg, mode=mode, cache=c, pos=pos, positions=positions,
-                  moe_dispatch=moe_dispatch, enc_out=enc_out)
+                  moe_dispatch=moe_dispatch, enc_out=enc_out, block=block)
         if ctx is not None and ctx.mesh is not None:
             kw.update(ctx=ctx, cspec=cspecs[i] if cspecs else None)
         if layer_remat:

@@ -10,9 +10,56 @@ around it (-1 at the top) and a few integer attributes. While a
 ``torch.profiler.record_function`` range of the same name, so it shows on
 the device trace's own timeline; and during a step the model's own ranges
 (`model_range`: ``model.norm``, ``model.attn``, ``model.mlp``,
-``model.head``) are entered too. With no span log, or no profiler
-recording, no range is entered. The names are listed in
-``docs/observability.md``.
+``model.head``, and within them ``model.mla.expand``,
+``model.mla.attend``, ``model.moe.route``, ``model.moe.experts``,
+``model.moe.shared``) are entered too. With no span log, or no profiler
+recording, no range is entered, and a replayed prefill graph enters none
+(its kernels fall under ``engine.prefill``). The engine's spans and the
+four outer ranges are listed in ``docs/observability.md``.
+
+The ranges inside ``model.attn`` of an MLA layer
+(`layers.mla_prefill_attention`, `layers.mla_absorbed_decode`):
+
+* ``model.mla.expand``: at prefill, the latent's up-projection to per-head
+  keys and values (``wkv_b``), the shared rope key joined to each head and
+  V padded to the qk width; at decode, the queries absorbed into the latent
+  (``q_nope`` times ``wkv_b``'s key columns).
+* ``model.mla.attend``: at prefill, the flash kernel at head dim nope +
+  rope; at decode, the latent attention in float32 over every slot's whole
+  cache and the values' up-projection.
+
+The ranges inside ``model.mlp`` of an MoE layer (`moe.moe_layer`,
+`moe.moe_layer_capacity`):
+
+* ``model.moe.route``: the float32 router, top-k, the gates (the rule of
+  `models.block.Block`) and the combine weights.
+* ``model.moe.experts``: the experts' products (every expert for every
+  token on the dense dispatch) and their gated sum.
+* ``model.moe.shared``: the shared experts' MLP added to it.
+
+``cardbench/tools/spans.py`` reads them with no edit (``device_by_range``
+matches ranges by the ``model.`` prefix); no benchmark metric reads them.
+
+Four counters in ``engine.metrics`` (not in ``stats()``), always on, count
+the work of these layers by host arithmetic alone (no device read), each
+summed over the layers of its kind and zero in a model without them; every
+prefill (its bucket) and decode step (every slot) adds to them:
+
+* ``engine.moe_expert_rows``: token-expert rows the MoE dispatch computes:
+  every token times every expert on the dense dispatch, each row of the
+  (E, C) buffer on the capacity one.
+* ``engine.moe_routed_rows``: token-expert rows the gates use, tokens times
+  top-k. The first over this is the dense dispatch's waste (E / k, 10.7 on
+  DeepSeek-V2-Lite).
+* ``engine.mla_decode_positions``: latent positions the MLA decode reads,
+  every slot's whole cache (``max_seq``) a step, and each token of a prefix
+  hit's suffix.
+* ``engine.mla_valid_positions``: the live slots' own positions (position +
+  1 each). The first over this is the latent decode's waste.
+
+Tests read them (``tests/test_torch_deepseek_v2.py``), and operators from
+``engine.metrics``; ``cardbench/tools/spans.py``'s fixed ``COUNTERS`` do
+not include them.
 """
 from __future__ import annotations
 

@@ -46,6 +46,16 @@ every leaf in that batch-1 layout, with whole token blocks; pages move at
 prefill, evict, resume, a prefix hit and migration (an evicted slot's row
 is gathered from its owner and cut to the pool's layout), never on a decode
 step.
+
+``block`` (`models.block.Block`) holds a published model's settings that
+its ``ModelConfig`` does not (the MoE gate rule, an MLA layer's rotary
+scaling); every prefill, graphed or eager, and every decode step run with
+it. The always-on counters ``engine.moe_expert_rows``,
+``engine.moe_routed_rows``, ``engine.mla_decode_positions`` and
+``engine.mla_valid_positions`` (summed over layers) count, by host
+arithmetic alone, the token-expert rows the MoE dispatch computes and those
+the gates use, and the latent positions the MLA decode reads and those the
+live slots hold.
 """
 from __future__ import annotations
 
@@ -58,8 +68,10 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
+from repro_torch.models import block as BL
 from repro_torch.models import model as M
 from repro_torch.models import moe as MOE
+from repro_torch.models import transformer as T
 from repro_torch.models import parallel as PAR
 from repro_torch.models.parallel import resolve_device
 from repro_torch.obs.metrics import MetricsRegistry, counter_attr, with_aliases
@@ -135,7 +147,7 @@ class ServingEngine:
                  seed: int = 0, paged: bool = False,
                  kv_blocks: Optional[int] = None, kv_block_tokens: int = 16,
                  prefix_sharing: bool = True, moe_dispatch: str = "dense",
-                 ctx=None):
+                 ctx=None, block: Optional[BL.Block] = None):
         if cfg.enc_dec:
             raise ValueError(
                 f"{cfg.arch_id} is an encoder-decoder model: the engine's "
@@ -150,6 +162,7 @@ class ServingEngine:
         self.cfg = cfg
         self.params = params
         self.ctx = ctx if ctx is not None and ctx.mesh is not None else None
+        self.block = block
         if self.ctx is not None:
             if cfg.family != "ssm":
                 from repro_torch.models.tp import check_kernel_shapes
@@ -186,6 +199,13 @@ class ServingEngine:
         # eagerly: there from the start, so that a zero reads as one
         for name in ("prefill_graph_captures", "prefill_graph_replays",
                      "prefill_eager"):
+            self.metrics.inc(f"engine.{name}", 0)
+        # the MoE and MLA layers the counters multiply by
+        specs = T.block_program(cfg).layers()
+        self._n_moe = sum(sp.moe for sp in specs)
+        self._n_mla = sum(sp.kind == "mla" for sp in specs)
+        for name in ("moe_expert_rows", "moe_routed_rows",
+                     "mla_decode_positions", "mla_valid_positions"):
             self.metrics.inc(f"engine.{name}", 0)
         self.n_prefills = 0       # prompts actually prefilled (resumes skip)
         # model decode steps run: one a `step` that decodes, one a token of
@@ -419,7 +439,9 @@ class ServingEngine:
                                        device=self.device)
                     logits, one_cache = M.decode_step(
                         self.params, tok, one_cache, pos, cfg=self.cfg,
-                        moe_dispatch=self.moe_dispatch, ctx=self.ctx)
+                        moe_dispatch=self.moe_dispatch, ctx=self.ctx,
+                        block=self.block)
+                    self._count(1, 1, decode_valid=[i])
                     self.n_decode_steps += 1
                 last_logits = logits
                 self.n_prefix_hits += 1
@@ -429,6 +451,7 @@ class ServingEngine:
                 self._note_compile("prefill", (1, bucket))
                 self.metrics.inc("engine.prefill_positions", bucket)
                 self.metrics.inc("engine.prefill_pad_positions", bucket - plen)
+                self._count(1, bucket)
                 if graphed:
                     # the graph holds the fresh cache and the slot insert
                     last_logits = self._graph_prefill(slot, padded, plen)
@@ -444,7 +467,7 @@ class ServingEngine:
                     last_logits, one_cache = M.prefill(
                         self.params, batch, one_cache, cfg=self.cfg,
                         last=plen - 1, moe_dispatch=self.moe_dispatch,
-                        ctx=self.ctx)
+                        ctx=self.ctx, block=self.block)
             if not graphed:
                 self.metrics.inc("engine.prefill_eager")
             self.n_prefills += 1
@@ -505,7 +528,8 @@ class ServingEngine:
             batch["positions"] = io.positions[..., :bucket]
         logits, one = M.prefill(self.params, batch, io.cache, cfg=self.cfg,
                                 last=io.buf[0:1],
-                                moe_dispatch=self.moe_dispatch)
+                                moe_dispatch=self.moe_dispatch,
+                                block=self.block)
         slot = io.buf[1:2]
         for layer, src in zip(self.cache, one, strict=True):
             for key, leaf in layer.items():
@@ -571,6 +595,22 @@ class ServingEngine:
         req.slot = -1
         return req
 
+    def _count(self, b: int, s: int, decode_valid=None) -> None:
+        """The MoE and MLA counters of one forward over a (b, s) batch: a
+        decode step where ``decode_valid`` gives the positions of its live
+        rows (each reads its slots 0..position), a prefill otherwise."""
+        if self._n_moe:
+            m, n = self.metrics, self._n_moe
+            m.inc("engine.moe_expert_rows",
+                  n * MOE.expert_rows(self.cfg, self.moe_dispatch, b, s))
+            m.inc("engine.moe_routed_rows", n * b * s * self.cfg.top_k)
+        if self._n_mla and decode_valid is not None:
+            n = self._n_mla
+            self.metrics.inc("engine.mla_decode_positions",
+                             n * b * self.max_seq)
+            self.metrics.inc("engine.mla_valid_positions",
+                             n * sum(p + 1 for p in decode_valid))
+
     def _maybe_finish(self, slot: int) -> None:
         req = self.slot_req[slot]
         if req is None:
@@ -609,7 +649,10 @@ class ServingEngine:
         with self._span("engine.decode"):
             logits, self.cache = M.decode_step(
                 self.params, tokens, self.cache, pos, cfg=self.cfg,
-                moe_dispatch=self.moe_dispatch, ctx=self.ctx)
+                moe_dispatch=self.moe_dispatch, ctx=self.ctx,
+                block=self.block)
+        self._count(self.max_batch, 1,
+                    decode_valid=[self.positions[i] for i in active])
         self.n_decode_steps += 1
         with self._span("engine.sync"):
             next_tokens = sample_tokens(logits, self.temperature,

@@ -143,3 +143,30 @@ def test_ep_a2a_keeps_the_reference_semantics(runs):
     a, _ = MOE.moe_layer_ep_a2a(_torch_tree(p), xt, cfg=tcfg)
     b, _ = MOE.moe_layer_capacity(_torch_tree(p), xt, cfg=tcfg)
     torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def _published_gates(ctx, tcfg, p, x):
+    from repro_torch.models import block as BL
+    full = _torch_tree(p)
+    local = PAR.shard_tree(full, PAR.param_specs(full, ctx), ctx)
+    xl = ctx.shard_batch(torch.as_tensor(x))
+    with torch.no_grad():
+        o, _ = MOE.moe_layer_ep_a2a(local, xl, cfg=tcfg, ctx=ctx,
+                                    capacity_factor=8.0,
+                                    block=BL.Block(norm_topk_prob=False))
+    return PAR.all_gather(o, ctx, "data", 0).numpy()
+
+
+def test_ep_a2a_takes_the_published_gate_rule():
+    """The all-to-all form's own gate site (on a (1, 2) mesh) keeps the
+    top-k softmax gates as they are under ``Block(norm_topk_prob=False)``,
+    as dense dispatch does, and so differs from the renormalised rule."""
+    from repro_torch.models import block as BL
+    tcfg, p, x = _setup()
+    got = run_ranks(_published_gates, (1, 2), ("data", "model"), tcfg, p, x)
+    xt = torch.as_tensor(x)
+    want, _ = MOE.moe_layer(_torch_tree(p), xt, cfg=tcfg,
+                            block=BL.Block(norm_topk_prob=False))
+    np.testing.assert_allclose(got, want.numpy(), rtol=3e-3, atol=3e-3)
+    renorm, _ = MOE.moe_layer(_torch_tree(p), xt, cfg=tcfg)
+    assert not np.allclose(got, renorm.numpy(), atol=1e-2)
